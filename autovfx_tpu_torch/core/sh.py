@@ -1,0 +1,79 @@
+"""Real spherical-harmonics evaluation for Gaussian colors (bands 0..3).
+
+Counterpart of ``autovfx_tpu/core/sh.py``.  ``sh`` is (..., K, 3) with
+K = (deg+1)^2, DC first, in the 3DGS PLY coefficient order.
+"""
+from __future__ import annotations
+
+import torch
+
+C0 = 0.28209479177387814
+C1 = 0.4886025119029199
+C2 = (
+    1.0925484305920792,
+    -1.0925484305920792,
+    0.31539156525252005,
+    -1.0925484305920792,
+    0.5462742152960396,
+)
+C3 = (
+    -0.5900435899266435,
+    2.890611442640554,
+    -0.4570457994644658,
+    0.3731763325901154,
+    -0.4570457994644658,
+    1.445305721320277,
+    -0.5900435899266435,
+)
+
+
+def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Evaluate SH of bands 0..degree at unit directions.
+
+    sh: (..., K, 3), K >= (degree+1)^2; dirs: (..., 3).  Returns the raw
+    (..., 3) color, before the +0.5 and clamp of ``sh_to_rgb``.
+    """
+    result = C0 * sh[..., 0, :]
+    if degree >= 1:
+        x = dirs[..., 0:1]
+        y = dirs[..., 1:2]
+        z = dirs[..., 2:3]
+        result = (
+            result
+            - C1 * y * sh[..., 1, :]
+            + C1 * z * sh[..., 2, :]
+            - C1 * x * sh[..., 3, :]
+        )
+        if degree >= 2:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (
+                result
+                + C2[0] * xy * sh[..., 4, :]
+                + C2[1] * yz * sh[..., 5, :]
+                + C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
+                + C2[3] * xz * sh[..., 7, :]
+                + C2[4] * (xx - yy) * sh[..., 8, :]
+            )
+            if degree >= 3:
+                result = (
+                    result
+                    + C3[0] * y * (3.0 * xx - yy) * sh[..., 9, :]
+                    + C3[1] * xy * z * sh[..., 10, :]
+                    + C3[2] * y * (4.0 * zz - xx - yy) * sh[..., 11, :]
+                    + C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * sh[..., 12, :]
+                    + C3[4] * x * (4.0 * zz - xx - yy) * sh[..., 13, :]
+                    + C3[5] * z * (xx - yy) * sh[..., 14, :]
+                    + C3[6] * x * (xx - 3.0 * yy) * sh[..., 15, :]
+                )
+    return result
+
+
+def sh_to_rgb(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH -> RGB clamped as ``max(x + 0.5, 0)`` (no upper clamp)."""
+    return torch.clamp(eval_sh(degree, sh, dirs) + 0.5, min=0.0)
+
+
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB -> DC SH coefficient."""
+    return (rgb - 0.5) / C0
