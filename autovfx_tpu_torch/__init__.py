@@ -9,11 +9,14 @@ kernels in ``csrc/`` (built with ``nvcc`` at first use, see
 versions.
 
 - ``autovfx_tpu_torch.core``   Gaussians, cameras, SH, quaternions, PLY IO.
-- ``autovfx_tpu_torch.ops``    preprocess, binning and blend, and their
-  kernel wrappers; ``rasterize`` / ``render``.
+- ``autovfx_tpu_torch.ops``    preprocess, binning and blend, their kernel
+  wrappers and backwards; ``rasterize`` / ``render``; kNN.
+- ``autovfx_tpu_torch.train``  losses, densification, the trainer
+  (``train_step``, ``densify_step``, ``reset_opacity_step``, ``train``)
+  and ``.npz`` checkpoints.
 - ``autovfx_tpu_torch.utils``  seeded synthetic scenes.
 - ``autovfx_tpu_torch.convert`` carries arrays of the JAX package's
-  parameters into this package's tensors.
+  parameters and training state into this package's tensors.
 """
 
 __version__ = "0.1.0"

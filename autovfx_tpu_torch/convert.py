@@ -1,9 +1,10 @@
-"""Carry scene parameters into the port as tensors.
+"""Carry scene parameters and training state into the port as tensors.
 
 Takes plain arrays (``np.asarray`` of each field of another package's
 ``Gaussians`` or ``Camera``), as a dict or as keyword arguments, and
-returns this package's dataclasses on a chosen device.  Only arrays
-cross the boundary, so nothing here imports another framework.
+returns this package's dataclasses on a chosen device; ``train_state``
+takes a whole training state in the arrays of a checkpoint.  Only
+arrays cross the boundary, so nothing here imports another framework.
 """
 from __future__ import annotations
 
@@ -55,4 +56,33 @@ def camera(arrays: Optional[Mapping] = None, *, device="cpu", **fields) -> Camer
                                                     "cx", "cy")},
         width=int(a["width"]),
         height=int(a["height"]),
+    )
+
+
+def train_state(arrays: Mapping, *, device="cpu"):
+    """A ``train.trainer.TrainState`` from the arrays of a training state,
+    named as in a checkpoint ``.npz`` of either package: ``g_<field>``,
+    ``m_<field>`` and ``v_<field>`` for the Gaussians and the two Adam
+    moments, ``adam_count``, ``stats_grad_accum``, ``stats_denom``,
+    ``stats_max_radii`` and ``step``.  The moments' ``active`` arrays are
+    read as bool (they are zeros)."""
+    from autovfx_tpu_torch.train.densify import DensifyStats
+    from autovfx_tpu_torch.train.trainer import AdamState, TrainState
+
+    def gauss(prefix):
+        return gaussians({f: arrays[prefix + f] for f in GAUSSIAN_FIELDS},
+                         device=device)
+
+    return TrainState(
+        gaussians=gauss("g_"),
+        adam=AdamState(m=gauss("m_"), v=gauss("v_"),
+                       count=int(arrays["adam_count"])),
+        stats=DensifyStats(
+            grad_accum=_f32(arrays["stats_grad_accum"], device),
+            denom=_f32(arrays["stats_denom"], device),
+            max_radii=torch.tensor(
+                np.asarray(arrays["stats_max_radii"], dtype=np.int32),
+                device=device),
+        ),
+        step=int(arrays["step"]),
     )

@@ -38,6 +38,23 @@ class Camera:
     def tan_half_fovy(self) -> torch.Tensor:
         return 0.5 * self.height / self.fy
 
+    def ray_directions(self) -> torch.Tensor:
+        """(H, W, 3) world-space directions (not normalized) of the rays
+        through the pixel centers, at integer coordinates + 0.5."""
+        dev = self.R.device
+        j, i = torch.meshgrid(
+            torch.arange(self.height, dtype=torch.float32, device=dev) + 0.5,
+            torch.arange(self.width, dtype=torch.float32, device=dev) + 0.5,
+            indexing="ij",
+        )
+        d = [(i - self.cx) / self.fx, (j - self.cy) / self.fy,
+             torch.ones_like(i)]
+        R = self.R
+        # row vectors times R, i.e. R^T (camera -> world) applied to each
+        return torch.stack(
+            [d[0] * R[0, k] + d[1] * R[1, k] + d[2] * R[2, k]
+             for k in range(3)], dim=-1)
+
 
 _TENSOR_FIELDS = ("R", "t", "fx", "fy", "cx", "cy")
 
@@ -104,3 +121,7 @@ def index_camera(batch: Camera, i) -> Camera:
     return dataclasses.replace(
         batch, **{name: getattr(batch, name)[i] for name in _TENSOR_FIELDS}
     )
+
+
+def num_cameras(batch: Camera) -> int:
+    return batch.R.shape[0]

@@ -21,24 +21,34 @@
 // duplicate's features by its gid, so the TPU path's (16|8, K) per-
 // duplicate feature gather disappears.  A block stops when all of its
 // pixels are frozen.  Results go straight into the (H, W, ...) images.
+//
+// The training variant (template flag TRAIN, entry `blend_fwd_train`)
+// also stores each pixel's final transmittance and n_contrib, the
+// number of leading duplicates of its tile up to and including the last
+// one it blended (CUDA's final_T and n_contrib), which kernel 4 starts
+// its back-to-front replay from.  The novel-view entry `blend_fwd` does
+// not pay for those writes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using blend::kAlphaMax;
+using blend::kAlphaMin;
+using blend::kThreads;
+using blend::kTEps;
 
-template <int PPT>
+template <int PPT, bool TRAIN>
 __global__ void __launch_bounds__(kThreads) blend_kernel(
     const int* __restrict__ tile_range, const int* __restrict__ gid,
     const float* __restrict__ mean2d, const float* __restrict__ conic,
     const float* __restrict__ opacity, const float* __restrict__ color,
     const float* __restrict__ depth, int tiles_x, int tile, int width,
     int height, float* __restrict__ out_color, float* __restrict__ out_depth,
-    float* __restrict__ out_alpha) {
+    float* __restrict__ out_alpha, float* __restrict__ out_final_t,
+    int* __restrict__ out_n_contrib) {
   __shared__ float2 s_xy[kThreads];
   __shared__ float4 s_conic_op[kThreads];
   __shared__ float4 s_rgbd[kThreads];
@@ -50,6 +60,7 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(
   const int end = tile_range[2 * t + 1];
 
   float px[PPT], py[PPT], T[PPT], C[PPT][3], D[PPT];
+  int last[PPT];
   bool inside[PPT], done[PPT];
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
@@ -62,6 +73,7 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(
     T[j] = 1.0f;
     C[j][0] = C[j][1] = C[j][2] = 0.0f;
     D[j] = 0.0f;
+    last[j] = 0;
   }
 
   for (int base = start; base < end; base += kThreads) {
@@ -91,7 +103,7 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(
         if (done[j]) continue;
         const float dx = xy.x - px[j];
         const float dy = xy.y - py[j];
-        const float power =
+        const float power =  // as in blend_bwd.cu (blend_common.cuh)
             -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
         if (power > 0.0f) continue;
         const float alpha = fminf(kAlphaMax, co.w * expf(power));
@@ -108,6 +120,7 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(
         C[j][2] += rgbd.z * w;
         D[j] += rgbd.w * w;
         T[j] = test_T;
+        if (TRAIN) last[j] = base + m - start + 1;
       }
     }
   }
@@ -121,7 +134,36 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(
     out_color[3 * pix + 2] = C[j][2];
     out_depth[pix] = D[j];
     out_alpha[pix] = 1.0f - T[j];
+    if (TRAIN) {
+      out_final_t[pix] = T[j];
+      out_n_contrib[pix] = last[j];
+    }
   }
+}
+
+template <bool TRAIN>
+int launch(const int* tile_range, const int* gid, const float* mean2d,
+           const float* conic, const float* opacity, const float* color,
+           const float* depth, int n_tiles, int tiles_x, int tile, int width,
+           int height, float* out_color, float* out_depth, float* out_alpha,
+           float* out_final_t, int* out_n_contrib, void* stream) {
+  if (n_tiles > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (tile == 16) {
+      blend_kernel<1, TRAIN><<<n_tiles, kThreads, 0, s>>>(
+          tile_range, gid, mean2d, conic, opacity, color, depth, tiles_x,
+          tile, width, height, out_color, out_depth, out_alpha, out_final_t,
+          out_n_contrib);
+    } else if (tile == 32) {
+      blend_kernel<4, TRAIN><<<n_tiles, kThreads, 0, s>>>(
+          tile_range, gid, mean2d, conic, opacity, color, depth, tiles_x,
+          tile, width, height, out_color, out_depth, out_alpha, out_final_t,
+          out_n_contrib);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -132,19 +174,21 @@ extern "C" int blend_fwd(const int* tile_range, const int* gid,
                          const float* depth, int n_tiles, int tiles_x,
                          int tile, int width, int height, float* out_color,
                          float* out_depth, float* out_alpha, void* stream) {
-  if (n_tiles > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (tile == 16) {
-      blend_kernel<1><<<n_tiles, kThreads, 0, s>>>(
-          tile_range, gid, mean2d, conic, opacity, color, depth, tiles_x,
-          tile, width, height, out_color, out_depth, out_alpha);
-    } else if (tile == 32) {
-      blend_kernel<4><<<n_tiles, kThreads, 0, s>>>(
-          tile_range, gid, mean2d, conic, opacity, color, depth, tiles_x,
-          tile, width, height, out_color, out_depth, out_alpha);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(tile_range, gid, mean2d, conic, opacity, color, depth,
+                       n_tiles, tiles_x, tile, width, height, out_color,
+                       out_depth, out_alpha, nullptr, nullptr, stream);
+}
+
+extern "C" int blend_fwd_train(const int* tile_range, const int* gid,
+                               const float* mean2d, const float* conic,
+                               const float* opacity, const float* color,
+                               const float* depth, int n_tiles, int tiles_x,
+                               int tile, int width, int height,
+                               float* out_color, float* out_depth,
+                               float* out_alpha, float* out_final_t,
+                               int* out_n_contrib, void* stream) {
+  return launch<true>(tile_range, gid, mean2d, conic, opacity, color, depth,
+                      n_tiles, tiles_x, tile, width, height, out_color,
+                      out_depth, out_alpha, out_final_t, out_n_contrib,
+                      stream);
 }

@@ -6,6 +6,8 @@
 // world -> view, near-z cull, quaternion + log-scale -> 3D covariance,
 // EWA 2D covariance + 0.3 dilation -> conic, 3-sigma / alpha-support
 // radius, truncated tile rect, tiles touched, SH degree <= 3 -> RGB.
+// An optional mean2d_offset (the training path's zeros, whose gradient
+// densification reads) is added to mean2d before the rect.
 //
 // What bounds it on this card: bytes.  A splat reads 62 floats (xyz,
 // 48 SH, scales, quaternion, opacity, active) and writes 17 words, and
@@ -22,42 +24,18 @@
 // the float32 parity tolerances assume (an FMA in det = a*c - b*b alone
 // moves the conic of an elongated splat by far more than rel 1e-5).
 //
-// The camera arrives as one small device tensor (see CAM_* below), so
-// no per-frame host read is needed.  Float -> int rect conversion
+// The camera arrives as one small device tensor (CAM_* in
+// preprocess_common.cuh), so no per-frame host read is needed.  Float -> int rect conversion
 // clamps to [0, tiles] first, then truncates, which gives the same ints
 // as the reference's truncate-then-clip for every in-range value.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "preprocess_common.cuh"
+
 namespace {
 
-constexpr float kNearZ = 0.2f;
-constexpr float kDilation = 0.3f;
-constexpr float C0 = 0.28209479177387814f;
-constexpr float C1 = 0.4886025119029199f;
-constexpr float C2_0 = 1.0925484305920792f;
-constexpr float C2_1 = -1.0925484305920792f;
-constexpr float C2_2 = 0.31539156525252005f;
-constexpr float C2_3 = -1.0925484305920792f;
-constexpr float C2_4 = 0.5462742152960396f;
-constexpr float C3_0 = -0.5900435899266435f;
-constexpr float C3_1 = 2.890611442640554f;
-constexpr float C3_2 = -0.4570457994644658f;
-constexpr float C3_3 = 0.3731763325901154f;
-constexpr float C3_4 = -0.4570457994644658f;
-constexpr float C3_5 = 1.445305721320277f;
-constexpr float C3_6 = -0.5900435899266435f;
-
-// layout of the camera parameter tensor (ops/preprocess_cuda.py)
-constexpr int CAM_R = 0;       // 9, row-major w2c rotation
-constexpr int CAM_T = 9;       // 3
-constexpr int CAM_FX = 12;
-constexpr int CAM_FY = 13;
-constexpr int CAM_CX = 14;
-constexpr int CAM_CY = 15;
-constexpr int CAM_LIMX = 16;   // 1.3 * tan_half_fovx
-constexpr int CAM_LIMY = 17;
-constexpr int CAM_POS = 18;    // 3, camera center in world space
+using namespace preprocess;
 
 __device__ __forceinline__ int rect_int(float v, int hi) {
   return (int)fminf(fmaxf(v, 0.0f), (float)hi);
@@ -69,7 +47,8 @@ __global__ void __launch_bounds__(256) preprocess_kernel(
     const float* __restrict__ log_scales, const float* __restrict__ quats,
     const float* __restrict__ opacity_logit,
     const unsigned char* __restrict__ active,
-    const float* __restrict__ override_color, const float* __restrict__ cam,
+    const float* __restrict__ override_color,
+    const float* __restrict__ mean2d_offset, const float* __restrict__ cam,
     float smod, int tile, int tiles_x, int tiles_y,
     float* __restrict__ out_mean2d, float* __restrict__ out_conic,
     float* __restrict__ out_opacity, float* __restrict__ out_color,
@@ -89,8 +68,12 @@ __global__ void __launch_bounds__(256) preprocess_kernel(
   const float pvz = x * R[6] + y * R[7] + z * R[8] + cam[CAM_T + 2];
   const bool in_front = pvz > kNearZ;
   const float safe_z = in_front ? pvz : 1.0f;
-  const float mx = fx * pvx / safe_z + cam[CAM_CX] - 0.5f;
-  const float my = fy * pvy / safe_z + cam[CAM_CY] - 0.5f;
+  float mx = fx * pvx / safe_z + cam[CAM_CX] - 0.5f;
+  float my = fy * pvy / safe_z + cam[CAM_CY] - 0.5f;
+  if (mean2d_offset != nullptr) {
+    mx += mean2d_offset[2 * i];
+    my += mean2d_offset[2 * i + 1];
+  }
 
   // 3D covariance from the normalized quaternion and scales
   float qw = quats[4 * i], qx = quats[4 * i + 1], qy = quats[4 * i + 2],
@@ -221,18 +204,18 @@ extern "C" int preprocess_fwd(
     int n, const float* xyz, const float* sh_dc, const float* sh_rest,
     int k_rest, int degree, const float* log_scales, const float* quats,
     const float* opacity_logit, const unsigned char* active,
-    const float* override_color, const float* cam, float smod, int tile,
-    int tiles_x, int tiles_y, float* mean2d, float* conic, float* opacity,
-    float* color, float* depth, int* radius, int* tile_min, int* tile_max,
+    const float* override_color, const float* mean2d_offset,
+    const float* cam, float smod, int tile, int tiles_x, int tiles_y,
+    float* mean2d, float* conic, float* opacity, float* color, float* depth, int* radius, int* tile_min, int* tile_max,
     int* tiles_touched, void* stream) {
   if (n > 0) {
     const int threads = 256;
     const int blocks = (n + threads - 1) / threads;
     preprocess_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         n, xyz, sh_dc, sh_rest, k_rest, degree, log_scales, quats,
-        opacity_logit, active, override_color, cam, smod, tile, tiles_x,
-        tiles_y, mean2d, conic, opacity, color, depth, radius, tile_min,
-        tile_max, tiles_touched);
+        opacity_logit, active, override_color, mean2d_offset, cam, smod,
+        tile, tiles_x, tiles_y, mean2d, conic, opacity, color, depth, radius,
+        tile_min, tile_max, tiles_touched);
   }
   return (int)cudaGetLastError();
 }

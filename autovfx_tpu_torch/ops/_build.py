@@ -4,7 +4,8 @@ All ``csrc/*.cu`` files compile into one shared library with a plain C
 interface, at first use, into ``build/kernels/<hash>/`` beside the
 package (the hash covers the sources and the flags, so an edited kernel
 rebuilds).  Each file compiles to an object with ``NVCC_FLAGS`` plus its
-entry in ``FILE_FLAGS``, and one ``nvcc -shared`` links them.  Nothing here runs when the module is imported, and a CPU
+entry in ``FILE_FLAGS``, all files at once, and one ``nvcc -shared``
+links them.  Nothing here runs when the module is imported, and a CPU
 tensor never reaches ``load_library``: the wrappers call it only on the
 path that launches a kernel.
 
@@ -36,8 +37,11 @@ NVCC_FLAGS = (
 )
 # The preprocess is held to float32 parity with its plain version
 # (rel 1e-5 on the conic, 1e-4 px on mean2d): without contraction into
-# FMA it rounds every product and sum as the unfused tensor ops do.
-FILE_FLAGS = {"preprocess.cu": ("-fmad=false",)}
+# FMA it rounds every product and sum as the unfused tensor ops do.  Its
+# backward recomputes the forward's determinant and is built the same
+# way, so the gradients through the conic start from the same numbers.
+FILE_FLAGS = {"preprocess.cu": ("-fmad=false",),
+              "preprocess_bwd.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,10 +54,21 @@ SIGNATURES = {
         _I,  # n
         _P, _P, _P, _I, _I,  # xyz, sh_dc, sh_rest, k_rest, degree
         _P, _P, _P, _P,  # log_scales, quats, opacity_logit, active
-        _P, _P, _F,  # override_color (nullable), cam params, scaling_modifier
+        _P, _P,  # override_color, mean2d_offset (both nullable)
+        _P, _F,  # cam params, scaling_modifier
         _I, _I, _I,  # tile, tiles_x, tiles_y
         _P, _P, _P, _P, _P,  # mean2d, conic, opacity, color, depth
         _P, _P, _P, _P,  # radius, tile_min, tile_max, tiles_touched
+        _P,  # stream
+    ],
+    "preprocess_bwd": [
+        _I,  # n
+        _P, _P, _P, _I, _I,  # xyz, sh_dc, sh_rest, k_rest, degree
+        _P, _P, _P, _P,  # log_scales, quats, opacity_logit, tiles_touched
+        _I, _P, _F,  # sh_color (0 with an override color), cam, modifier
+        _P, _P, _P, _P, _P,  # g mean2d, conic, opacity, color, depth
+        _P, _P, _P, _P, _P, _P,  # d xyz, sh_dc, sh_rest, log_scales,
+        #                          quats, opacity_logit
         _P,  # stream
     ],
     "duplicate_with_keys": [
@@ -68,6 +83,23 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,  # mean2d, conic, opacity, color, depth
         _I, _I, _I, _I, _I,  # n_tiles, tiles_x, tile, width, height
         _P, _P, _P,  # out color, depth, alpha
+        _P,  # stream
+    ],
+    "blend_fwd_train": [
+        _P, _P,  # tile_range, gid
+        _P, _P, _P, _P, _P,  # mean2d, conic, opacity, color, depth
+        _I, _I, _I, _I, _I,  # n_tiles, tiles_x, tile, width, height
+        _P, _P, _P,  # out color, depth, alpha
+        _P, _P,  # out final_T, n_contrib
+        _P,  # stream
+    ],
+    "blend_bwd": [
+        _P, _P,  # tile_range, gid
+        _P, _P, _P, _P, _P,  # mean2d, conic, opacity, color, depth
+        _P, _P,  # final_T, n_contrib
+        _P, _P, _P,  # g color, depth, alpha (images)
+        _I, _I, _I, _I, _I,  # n_tiles, tiles_x, tile, width, height
+        _P,  # grad (N, 10), zeroed by the caller
         _P,  # stream
     ],
 }
@@ -104,26 +136,34 @@ def build() -> Path:
     nvcc = find_nvcc()
     log = []
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
-        objs = []
+        objs, cmds = [], []
         for src in sorted(CSRC.glob("*.cu")):
             obj = os.path.join(tmp_dir, src.stem + ".o")
-            _run([nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(src.name, ()), "-c",
-                  str(src), "-o", obj], log)
+            cmds.append([nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(src.name, ()),
+                         "-c", str(src), "-o", obj])
             objs.append(obj)
+        _run_all(cmds, log)  # one nvcc per source, all at once
         tmp = os.path.join(tmp_dir, LIB_NAME)
-        _run([nvcc, *ARCH, "-shared", "-o", tmp, *objs], log)
+        _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]], log)
         (out.parent / "nvcc.log").write_text("".join(log))
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
-def _run(cmd: list[str], log: list[str]) -> None:
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{log[-1]}"
-        )
+def _run_all(cmds: list[list[str]], log: list[str]) -> None:
+    """Run the commands side by side; raise with the log of the first
+    that failed, after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        text, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{log[-1]}"
+    if failed:
+        raise RuntimeError(failed)
 
 
 def load_library() -> ctypes.CDLL:

@@ -60,9 +60,9 @@ def expand_duplicates(
     ends = torch.cumsum(counts, 0)  # int64: offsets never wrap
     starts = ends - counts
     total = ends[-1] if counts.numel() else ends.new_zeros(())
-    keys, gids = fill_cuda.duplicate_with_keys(
-        counts, starts, splats.tile_min, splats.tile_max, splats.depth,
-        tiles_x, n_tiles, budget,
+    keys, gids = fill_cuda.duplicate_with_keys(  # integer work: no gradient
+        counts, starts, splats.tile_min, splats.tile_max,
+        splats.depth.detach(), tiles_x, n_tiles, budget,
     )
     return keys, gids, total
 

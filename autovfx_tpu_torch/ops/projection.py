@@ -72,8 +72,14 @@ def preprocess(
     override_color: Optional[torch.Tensor] = None,
     sh_degree: Optional[int] = None,
     tile: int = TILE,
+    mean2d_offset: Optional[torch.Tensor] = None,
 ) -> Splats2D:
-    """Project all Gaussians to screen space."""
+    """Project all Gaussians to screen space.
+
+    ``mean2d_offset`` (N, 2) is added to ``mean2d`` before the tile rect;
+    passed as zeros, its gradient is the screen-space position gradient
+    that densification reads (the reference's ``screenspace_points``).
+    """
     tiles_x, tiles_y = num_tiles(cam.width, cam.height, tile)
     R, t = cam.R, cam.t
     px_, py_, pz_ = g.xyz.unbind(-1)
@@ -89,6 +95,8 @@ def preprocess(
         ],
         dim=-1,
     )
+    if mean2d_offset is not None:
+        mean2d = mean2d + mean2d_offset
 
     # EWA 2D covariance (computeCov2D)
     limx = 1.3 * cam.tan_half_fovx

@@ -10,11 +10,16 @@ with every stage dispatched on the tensors' device: CUDA tensors go
 through the hand-written kernels, CPU tensors through their plain
 PyTorch versions.  There is no backend switch.
 
+When any input needs a gradient, preprocess and blend go through
+``preprocess_cuda.PreprocessFn`` and ``blend_cuda.BlendFn``, whose
+backwards are ``csrc/preprocess_bwd.cu`` and kernel 4
+(``csrc/blend_bwd.cu``); the binning is integer work and is not
+differentiated.  Otherwise the novel-view path runs as it is.
+
 Not ported from the JAX package: ``packed_rows``, ``rasterize_rows``
 and ``rasterize_rows_multi`` (the TPU's field-major scene-rows entry
 points; a merged render over several ``Gaussians`` sets takes their
-place with the edited-frame slice), and the ``mean2d_offset``
-densification hook, which belongs to the training slice.
+place with the edited-frame slice).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from autovfx_tpu_torch.core.cameras import Camera
-from autovfx_tpu_torch.core.gaussians import Gaussians
+from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS, Gaussians
 from autovfx_tpu_torch.ops import binning, blend_cuda, preprocess_cuda
 
 
@@ -64,21 +69,26 @@ def rasterize(
     """Render Gaussians through one camera.
 
     ``override_color`` (N, 3) replaces the SH colors.  ``mean2d_offset``
-    is the training slice's hook and raises ``NotImplementedError``.
+    (N, 2) is added to the screen positions; passed as zeros that need a
+    gradient, its gradient is the screen-space position gradient that
+    densification reads.
     """
-    if mean2d_offset is not None:
-        raise NotImplementedError(
-            "mean2d_offset (screen-space gradients) comes with training"
-        )
-    splats = preprocess_cuda.preprocess(
+    inputs = [getattr(g, f) for f in PARAM_FIELDS]
+    inputs += [t for t in (override_color, mean2d_offset) if t is not None]
+    differentiable = torch.is_grad_enabled() and any(
+        t.requires_grad for t in inputs)
+    pre, blend = ((preprocess_cuda.preprocess_differentiable,
+                   blend_cuda.blend_differentiable) if differentiable else
+                  (preprocess_cuda.preprocess, blend_cuda.blend))
+    splats = pre(
         g, cam, scaling_modifier=config.scaling_modifier,
         override_color=override_color, sh_degree=config.sh_degree,
-        tile=config.tile,
+        tile=config.tile, mean2d_offset=mean2d_offset,
     )
     binned = binning.bin_splats(
         splats, cam.width, cam.height, config.dup_budget, tile=config.tile
     )
-    color, depth, alpha = blend_cuda.blend(
+    color, depth, alpha = blend(
         binned, splats, cam.width, cam.height, config.tile
     )
     if bg is not None:

@@ -1,9 +1,9 @@
 """Package guards of the PyTorch port.
 
-The machine with the card has no JAX, so the port must import and
-render with JAX and the JAX package unimportable; importing it must not
-need ``nvcc``; and a CPU tensor must never reach the CUDA library
-loader.
+The machine with the card has no JAX, so the port must import, render
+and take a training step with JAX and the JAX package unimportable;
+importing it must not need ``nvcc``; and a CPU tensor must never reach
+the CUDA library loader.
 """
 import os
 import subprocess
@@ -30,6 +30,11 @@ RENDER_500 = textwrap.dedent("""
     out = P.rasterize(g, cam, config=P.RasterConfig(dup_budget=1 << 14))
     assert out.color.shape == (48, 64, 3)
     assert torch.isfinite(out.color).all() and float(out.alpha.max()) > 0.1
+    from autovfx_tpu_torch.train import trainer as T
+    cfg = T.TrainConfig(raster=P.RasterConfig(dup_budget=1 << 14))
+    state, aux = T.train_step(T.init_state(g), cam, out.color.flip(1), cfg)
+    assert state.step == 1 and torch.isfinite(aux.loss)
+    assert not torch.equal(state.gaussians.xyz, g.xyz)
     blocked = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "autovfx_tpu")
                and sys.modules[m] is not None]
@@ -66,24 +71,31 @@ def test_import_needs_no_nvcc():
 def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     from autovfx_tpu_torch.ops import blend_cuda, fill_cuda, preprocess_cuda
     from autovfx_tpu_torch.core.cameras import look_at_camera
+    from autovfx_tpu_torch.train import trainer
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
     def refuse(*_):
         raise AssertionError("the CUDA library was asked for on the CPU")
 
+    def launches():
+        return (preprocess_cuda.launches, preprocess_cuda.bwd_launches,
+                fill_cuda.launches, blend_cuda.launches,
+                blend_cuda.train_launches, blend_cuda.bwd_launches)
+
     monkeypatch.setattr(_build, "load_library", refuse)
     monkeypatch.setattr(_build, "build", refuse)
-    counts = (preprocess_cuda.launches, fill_cuda.launches,
-              blend_cuda.launches)
+    counts = launches()
     g = make_garden_like(3000, seed=2, extent=2.67)
     cam = look_at_camera([2.6, 0.0, 1.4], [0, 0, 0.2], [0, 0, 1],
                          fx=48.0, fy=48.0, width=64, height=48)
-    out = autovfx_tpu_torch.render(
-        g, cam, config=autovfx_tpu_torch.RasterConfig(dup_budget=1 << 15,
-                                                      tile=32))
+    config = autovfx_tpu_torch.RasterConfig(dup_budget=1 << 15, tile=32)
+    out = autovfx_tpu_torch.render(g, cam, config=config)
     assert out.rgba.shape == (48, 64, 4)
-    assert counts == (preprocess_cuda.launches, fill_cuda.launches,
-                      blend_cuda.launches)
+    state, aux = trainer.train_step(
+        trainer.init_state(g), cam, out.rgba[..., :3].flip(0),
+        trainer.TrainConfig(raster=config))
+    assert state.adam.count == 1 and bool(aux.loss > 0)
+    assert counts == launches()
 
 
 def test_library_hash_follows_sources_and_flags(tmp_path, monkeypatch):
@@ -102,7 +114,8 @@ def test_library_hash_follows_sources_and_flags(tmp_path, monkeypatch):
 
 def test_kernel_sources_ship_with_the_package():
     names = {p.name for p in _build.sources()}
-    assert {"preprocess.cu", "duplicate.cu", "blend_fwd.cu"} <= names
+    assert {"preprocess.cu", "duplicate.cu", "blend_fwd.cu", "blend_bwd.cu",
+            "preprocess_bwd.cu"} <= names
     for name in _build.SIGNATURES:
         text = "".join(p.read_text() for p in _build.sources())
         assert f'extern "C" int {name}(' in text, name
