@@ -14,6 +14,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from autovfx_tpu_torch.core import device as devices
 from autovfx_tpu_torch.core.cameras import Camera
 from autovfx_tpu_torch.core.gaussians import Gaussians
 
@@ -37,10 +38,11 @@ def _f32(a, device) -> torch.Tensor:
 
 
 def gaussians(
-    arrays: Optional[Mapping] = None, *, device="cpu", **fields
+    arrays: Optional[Mapping] = None, *, device=devices.DEFAULT, **fields
 ) -> Gaussians:
     """Gaussians from arrays named like its fields (float32; ``active``
     becomes bool)."""
+    device = devices.resolve(device)
     a = _collect(Gaussians, arrays, fields)
     out = {name: _f32(a[name], device) for name in _FLOAT_FIELDS}
     out["active"] = torch.tensor(np.asarray(a["active"], dtype=bool),
@@ -48,8 +50,10 @@ def gaussians(
     return Gaussians(**out)
 
 
-def camera(arrays: Optional[Mapping] = None, *, device="cpu", **fields) -> Camera:
+def camera(arrays: Optional[Mapping] = None, *, device=devices.DEFAULT,
+           **fields) -> Camera:
     """Camera from arrays ``R, t, fx, fy, cx, cy`` and ints ``width, height``."""
+    device = devices.resolve(device)
     a = _collect(Camera, arrays, fields)
     return Camera(
         **{name: _f32(a[name], device) for name in ("R", "t", "fx", "fy",
@@ -59,13 +63,14 @@ def camera(arrays: Optional[Mapping] = None, *, device="cpu", **fields) -> Camer
     )
 
 
-def train_state(arrays: Mapping, *, device="cpu"):
+def train_state(arrays: Mapping, *, device=devices.DEFAULT):
     """A ``train.trainer.TrainState`` from the arrays of a training state,
     named as in a checkpoint ``.npz`` of either package: ``g_<field>``,
     ``m_<field>`` and ``v_<field>`` for the Gaussians and the two Adam
     moments, ``adam_count``, ``stats_grad_accum``, ``stats_denom``,
     ``stats_max_radii`` and ``step``.  The moments' ``active`` arrays are
     read as bool (they are zeros)."""
+    device = devices.resolve(device)
     from autovfx_tpu_torch.train.densify import DensifyStats
     from autovfx_tpu_torch.train.trainer import AdamState, TrainState
 

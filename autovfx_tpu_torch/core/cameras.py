@@ -13,6 +13,8 @@ from typing import List
 import numpy as np
 import torch
 
+from autovfx_tpu_torch.core import device as devices
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -67,9 +69,10 @@ def camera_from_c2w(
     cy: float,
     width: int,
     height: int,
-    device="cpu",
+    device=devices.DEFAULT,
 ) -> Camera:
     """Build a Camera from an OpenCV-convention camera-to-world matrix."""
+    device = devices.resolve(device)
     w2c = np.linalg.inv(np.asarray(c2w, dtype=np.float64))
     f32 = lambda v: torch.tensor(np.float32(v), device=device)
     return Camera(
@@ -86,10 +89,11 @@ def camera_from_c2w(
 
 def look_at_camera(
     eye, target, up, fx: float, fy: float, width: int, height: int,
-    device="cpu",
+    device=devices.DEFAULT,
 ) -> Camera:
     """OpenCV-convention look-at camera with the principal point at the
     image center."""
+    device = devices.resolve(device)
     eye = np.asarray(eye, np.float64)
     forward = np.asarray(target, np.float64) - eye
     forward /= np.linalg.norm(forward)

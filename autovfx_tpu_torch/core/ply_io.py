@@ -12,6 +12,7 @@ import re
 import numpy as np
 import torch
 
+from autovfx_tpu_torch.core import device as devices
 from autovfx_tpu_torch.core.gaussians import Gaussians
 
 _HEADER_RE = re.compile(rb"end_header\n")
@@ -93,8 +94,9 @@ def _parse_ply_header(raw: bytes):
     return count, props, end.end()
 
 
-def load_ply(path: str, device="cpu") -> Gaussians:
+def load_ply(path: str, device=devices.DEFAULT) -> Gaussians:
     """Read a binary PLY into ``Gaussians`` on ``device``."""
+    device = devices.resolve(device)
     with open(path, "rb") as f:
         raw = f.read()
     count, props, offset = _parse_ply_header(raw)

@@ -1,4 +1,4 @@
-// Backward of the per-splat preprocess, one thread per Gaussian.
+// Backward of the per-splat preprocess.
 //
 // No TPU kernel of its own: in the JAX package this gradient is XLA's
 // autodiff of autovfx_tpu/ops/projection.py `preprocess`.  Its contract
@@ -24,11 +24,25 @@
 // With an override colour the SH part is skipped: the colour gradient
 // is the override's own, which the wrapper returns.
 //
-// What bounds it: bytes, as the forward.  A splat reads its 59
-// parameters, 10 output gradients and one int, recomputes the forward's
-// intermediates in registers rather than storing them, and writes 59
-// gradients.  Compiled with -fmad=false (ops/_build.py FILE_FLAGS), like
-// kernel 1, so the recomputed determinant rounds as the plain forward's.
+// What bounds it: bytes.  A splat reads its 59 parameters, 10 output
+// gradients and one int (280 B at 15 SH rest coefficients) and writes
+// 59 gradients (236 B); the forward's intermediates are recomputed in
+// registers rather than stored.  The parameters and their gradients are
+// arrays of structures (the sh_rest row alone is 180 B), so one thread
+// per splat reading and writing its own rows touches a 32-byte sector
+// per 4 useful bytes on every warp-wide access.  So a block owns a run
+// of kSplats consecutive splats, whose rows of each field are one
+// contiguous slab: it stages every slab in shared memory with 16-byte
+// cp.async copies, each thread computes its splat from shared memory
+// and writes the gradients back into its own input rows (each row is
+// read before it is overwritten), and the block stores each slab with
+// coalesced 16-byte stores.  The five gradient inputs are read at their
+// own row strides, so the (N, 10) buffer of kernel 4 is taken as it is.
+// Shared memory is sized from the SH row at launch (35 KB at 15 rest
+// coefficients).  Compiled with -fmad=false (ops/_build.py FILE_FLAGS),
+// like kernel 1, so the recomputed determinant rounds as the plain
+// forward's.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,19 +57,19 @@ __host__ __device__ __forceinline__ float clampf(float v, float lo,
   return fminf(fmaxf(v, lo), hi);
 }
 
+// Splat i's gradients.  Each d_* row may be the same memory as its
+// parameter row (the kernel computes in place): every parameter is read
+// before its gradient is written, so those pointers are not restrict.
 __host__ __device__ __forceinline__ void preprocess_bwd_one(
-    int i, const float* __restrict__ xyz, const float* __restrict__ sh_dc,
-    const float* __restrict__ sh_rest, int k_rest, int degree,
-    const float* __restrict__ log_scales, const float* __restrict__ quats,
-    const float* __restrict__ opacity_logit,
-    const int* __restrict__ tiles_touched, bool sh_color,
-    const float* __restrict__ cam, float smod,
+    int i, const float* xyz, const float* sh_dc, const float* sh_rest,
+    int k_rest, int degree, const float* log_scales, const float* quats,
+    const float* opacity_logit, const int* __restrict__ tiles_touched,
+    bool sh_color, const float* __restrict__ cam, float smod,
     const float* __restrict__ g_mean2d, const float* __restrict__ g_conic,
     const float* __restrict__ g_opacity, const float* __restrict__ g_color,
-    const float* __restrict__ g_depth, float* __restrict__ d_xyz,
-    float* __restrict__ d_sh_dc, float* __restrict__ d_sh_rest,
-    float* __restrict__ d_log_scales, float* __restrict__ d_quats,
-    float* __restrict__ d_opacity_logit) {
+    const float* __restrict__ g_depth, float* d_xyz, float* d_sh_dc,
+    float* d_sh_rest, float* d_log_scales, float* d_quats,
+    float* d_opacity_logit) {
   const float x = xyz[3 * i], y = xyz[3 * i + 1], z = xyz[3 * i + 2];
   const float* R = cam + CAM_R;
   const float fx = cam[CAM_FX], fy = cam[CAM_FY];
@@ -309,26 +323,118 @@ __host__ __device__ __forceinline__ void preprocess_bwd_one(
   for (int c = 0; c < 3; ++c) d_xyz[3 * i + c] = dxyz[c];
 }
 
-__global__ void __launch_bounds__(256) preprocess_bwd_kernel(
+constexpr int kSplats = 128;  // splats of a block, one per thread
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+// Floats of shared memory per splat: xyz, sh_dc, sh_rest, log_scales,
+// quats, opacity_logit, tiles_touched and the 10 output gradients.
+__host__ __device__ constexpr int smem_floats(int k_rest) {
+  return 3 + 3 + 3 * k_rest + 3 + 4 + 1 + 1 + 10;
+}
+
+// dst[0, count) = src[0, count): global to shared, 16-byte cp.async
+// copies where src is 16-byte aligned (dst always is), else 4-byte loads.
+__device__ __forceinline__ void stage_in(float* dst, const float* src,
+                                         int count) {
+  int e = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = count >> 2;
+    for (int v = threadIdx.x; v < n4; v += kSplats)
+      __pipeline_memcpy_async(dst + 4 * v, src + 4 * v, 16);
+    e = 4 * n4;
+  }
+  for (e += threadIdx.x; e < count; e += kSplats) dst[e] = src[e];
+}
+
+// dst[r * width + c] = src[r * stride + c] for the block's rows r < rows.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int64_t stride, int width,
+                                           int rows) {
+  for (int e = threadIdx.x; e < rows * width; e += kSplats) {
+    const int r = e / width;
+    dst[e] = src[r * stride + (e - r * width)];
+  }
+}
+
+// dst[0, count) = src[0, count): shared to global, 16-byte stores where
+// dst is 16-byte aligned (src always is).
+__device__ __forceinline__ void stage_out(float* dst, const float* src,
+                                          int count) {
+  int e = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int n4 = count >> 2;
+    for (int v = threadIdx.x; v < n4; v += kSplats)
+      reinterpret_cast<float4*>(dst)[v] =
+          reinterpret_cast<const float4*>(src)[v];
+    e = 4 * n4;
+  }
+  for (e += threadIdx.x; e < count; e += kSplats) dst[e] = src[e];
+}
+
+__global__ void __launch_bounds__(kSplats) preprocess_bwd_kernel(
     int n, const float* __restrict__ xyz, const float* __restrict__ sh_dc,
     const float* __restrict__ sh_rest, int k_rest, int degree,
     const float* __restrict__ log_scales, const float* __restrict__ quats,
     const float* __restrict__ opacity_logit,
     const int* __restrict__ tiles_touched, bool sh_color,
     const float* __restrict__ cam, float smod,
-    const float* __restrict__ g_mean2d, const float* __restrict__ g_conic,
-    const float* __restrict__ g_opacity, const float* __restrict__ g_color,
-    const float* __restrict__ g_depth, float* __restrict__ d_xyz,
-    float* __restrict__ d_sh_dc, float* __restrict__ d_sh_rest,
-    float* __restrict__ d_log_scales, float* __restrict__ d_quats,
-    float* __restrict__ d_opacity_logit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  preprocess_bwd_one(i, xyz, sh_dc, sh_rest, k_rest, degree, log_scales,
-                     quats, opacity_logit, tiles_touched, sh_color, cam,
-                     smod, g_mean2d, g_conic, g_opacity, g_color, g_depth,
-                     d_xyz, d_sh_dc, d_sh_rest, d_log_scales, d_quats,
-                     d_opacity_logit);
+    const float* __restrict__ g_mean2d, int64_t s_mean2d,
+    const float* __restrict__ g_conic, int64_t s_conic,
+    const float* __restrict__ g_opacity, int64_t s_opacity,
+    const float* __restrict__ g_color, int64_t s_color,
+    const float* __restrict__ g_depth, int64_t s_depth,
+    float* __restrict__ d_xyz, float* __restrict__ d_sh_dc,
+    float* __restrict__ d_sh_rest, float* __restrict__ d_log_scales,
+    float* __restrict__ d_quats, float* __restrict__ d_opacity_logit) {
+  // One slab per field, kSplats rows each (a multiple of 4 floats, so
+  // every slab starts 16-byte aligned).
+  extern __shared__ __align__(16) float smem[];
+  const int rest_w = 3 * k_rest;
+  float* s_xyz = smem;
+  float* s_dc = s_xyz + 3 * kSplats;
+  float* s_rest = s_dc + 3 * kSplats;
+  float* s_ls = s_rest + rest_w * kSplats;
+  float* s_q = s_ls + 3 * kSplats;
+  float* s_op = s_q + 4 * kSplats;
+  int* s_tt = reinterpret_cast<int*>(s_op + kSplats);
+  float* s_gm = reinterpret_cast<float*>(s_tt + kSplats);  // output grads
+  float* s_gc = s_gm + 2 * kSplats;
+  float* s_go = s_gc + 3 * kSplats;
+  float* s_gcol = s_go + kSplats;
+  float* s_gd = s_gcol + 3 * kSplats;
+
+  const int64_t i0 = (int64_t)blockIdx.x * kSplats;
+  const int m = n - i0 < kSplats ? (int)(n - i0) : kSplats;  // ragged end
+  stage_in(s_xyz, xyz + 3 * i0, 3 * m);
+  stage_in(s_dc, sh_dc + 3 * i0, 3 * m);
+  stage_in(s_rest, sh_rest + rest_w * i0, rest_w * m);
+  stage_in(s_ls, log_scales + 3 * i0, 3 * m);
+  stage_in(s_q, quats + 4 * i0, 4 * m);
+  stage_in(s_op, opacity_logit + i0, m);
+  stage_in(reinterpret_cast<float*>(s_tt),
+           reinterpret_cast<const float*>(tiles_touched + i0), m);
+  stage_rows(s_gm, g_mean2d + i0 * s_mean2d, s_mean2d, 2, m);
+  stage_rows(s_gc, g_conic + i0 * s_conic, s_conic, 3, m);
+  stage_rows(s_go, g_opacity + i0 * s_opacity, s_opacity, 1, m);
+  stage_rows(s_gcol, g_color + i0 * s_color, s_color, 3, m);
+  stage_rows(s_gd, g_depth + i0 * s_depth, s_depth, 1, m);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  if ((int)threadIdx.x < m)  // in place: each gradient over its parameter
+    preprocess_bwd_one(threadIdx.x, s_xyz, s_dc, s_rest, k_rest, degree,
+                       s_ls, s_q, s_op, s_tt, sh_color, cam, smod, s_gm,
+                       s_gc, s_go, s_gcol, s_gd, s_xyz, s_dc, s_rest, s_ls,
+                       s_q, s_op);
+  __syncthreads();
+
+  stage_out(d_xyz + 3 * i0, s_xyz, 3 * m);
+  stage_out(d_sh_dc + 3 * i0, s_dc, 3 * m);
+  stage_out(d_sh_rest + rest_w * i0, s_rest, rest_w * m);
+  stage_out(d_log_scales + 3 * i0, s_ls, 3 * m);
+  stage_out(d_quats + 4 * i0, s_q, 4 * m);
+  stage_out(d_opacity_logit + i0, s_op, m);
 }
 
 }  // namespace
@@ -337,19 +443,28 @@ extern "C" int preprocess_bwd(
     int n, const float* xyz, const float* sh_dc, const float* sh_rest,
     int k_rest, int degree, const float* log_scales, const float* quats,
     const float* opacity_logit, const int* tiles_touched, int sh_color,
-    const float* cam, float smod, const float* g_mean2d,
-    const float* g_conic, const float* g_opacity, const float* g_color,
-    const float* g_depth, float* d_xyz, float* d_sh_dc, float* d_sh_rest,
-    float* d_log_scales, float* d_quats, float* d_opacity_logit,
-    void* stream) {
+    const float* cam, float smod, const float* g_mean2d, int64_t s_mean2d,
+    const float* g_conic, int64_t s_conic, const float* g_opacity,
+    int64_t s_opacity, const float* g_color, int64_t s_color,
+    const float* g_depth, int64_t s_depth, float* d_xyz, float* d_sh_dc,
+    float* d_sh_rest, float* d_log_scales, float* d_quats,
+    float* d_opacity_logit, void* stream) {
   if (n > 0) {
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
-    preprocess_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int smem = kSplats * smem_floats(k_rest) * (int)sizeof(float);
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          preprocess_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int blocks = (n + kSplats - 1) / kSplats;
+    preprocess_bwd_kernel<<<blocks, kSplats, smem, (cudaStream_t)stream>>>(
         n, xyz, sh_dc, sh_rest, k_rest, degree, log_scales, quats,
         opacity_logit, tiles_touched, sh_color != 0, cam, smod, g_mean2d,
-        g_conic, g_opacity, g_color, g_depth, d_xyz, d_sh_dc, d_sh_rest,
-        d_log_scales, d_quats, d_opacity_logit);
+        s_mean2d, g_conic, s_conic, g_opacity, s_opacity, g_color, s_color,
+        g_depth, s_depth, d_xyz, d_sh_dc, d_sh_rest, d_log_scales, d_quats,
+        d_opacity_logit);
   }
   return (int)cudaGetLastError();
 }

@@ -66,7 +66,8 @@ SIGNATURES = {
         _P, _P, _P, _I, _I,  # xyz, sh_dc, sh_rest, k_rest, degree
         _P, _P, _P, _P,  # log_scales, quats, opacity_logit, tiles_touched
         _I, _P, _F,  # sh_color (0 with an override color), cam, modifier
-        _P, _P, _P, _P, _P,  # g mean2d, conic, opacity, color, depth
+        _P, _I64, _P, _I64,  # g mean2d, conic, each with its row stride
+        _P, _I64, _P, _I64, _P, _I64,  # g opacity, color, depth, the same
         _P, _P, _P, _P, _P, _P,  # d xyz, sh_dc, sh_rest, log_scales,
         #                          quats, opacity_logit
         _P,  # stream
@@ -198,3 +199,20 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_rows(t: torch.Tensor, name: str, dtype: torch.dtype,
+               shape: tuple) -> int:
+    """Like ``check_tensor`` for a tensor that a kernel reads row by row
+    at its own row stride, such as a column slice of a wider buffer: its
+    columns must be adjacent, its rows need not be.  Returns the row
+    stride in elements."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dim() == 2 and t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} must have adjacent columns")
+    return t.stride(0)

@@ -18,7 +18,7 @@ import torch
 from autovfx_tpu_torch.core.cameras import Camera
 from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS, Gaussians
 from autovfx_tpu_torch.ops import _build, projection
-from autovfx_tpu_torch.ops._build import check_tensor
+from autovfx_tpu_torch.ops._build import check_rows, check_tensor
 from autovfx_tpu_torch.ops.blend_ref import SplatGrads
 from autovfx_tpu_torch.ops.projection import Splats2D
 
@@ -207,7 +207,9 @@ def preprocess_bwd_kernel(
     tile: int = projection.TILE,
 ) -> ParamGrads:
     """``csrc/preprocess_bwd.cu``; ``tile`` is not read (the forward's
-    ``tiles_touched`` carries the rect)."""
+    ``tiles_touched`` carries the rect).  Each field of ``d`` is read at
+    its own row stride, so column slices of one buffer (kernel 4's
+    (N, 10) rows) need no copy."""
     global bwd_launches
     n = g.capacity
     k_rest = g.sh_rest.shape[1]
@@ -215,10 +217,12 @@ def preprocess_bwd_kernel(
     f32 = torch.float32
     _check_gaussians(g)
     check_tensor(tiles_touched, "tiles_touched", torch.int32, (n,))
+    rows = []  # pointer and row stride of each output gradient
     for name, shape in (("mean2d", (n, 2)), ("conic", (n, 3)),
                         ("opacity", (n,)), ("color", (n, 3)),
                         ("depth", (n,))):
-        check_tensor(getattr(d, name), f"d {name}", f32, shape)
+        t = getattr(d, name)
+        rows += [t.data_ptr(), check_rows(t, f"d {name}", f32, shape)]
     cam_p = camera_params(cam)
     check_tensor(cam_p, "camera params", f32, (21,))
     out = ParamGrads(*(torch.empty_like(getattr(g, f)) for f in PARAM_FIELDS),
@@ -230,9 +234,7 @@ def preprocess_bwd_kernel(
             k_rest, degree, g.log_scales.data_ptr(), g.quats.data_ptr(),
             g.opacity_logit.data_ptr(), tiles_touched.data_ptr(),
             int(override_color is None), cam_p.data_ptr(),
-            float(scaling_modifier), d.mean2d.data_ptr(), d.conic.data_ptr(),
-            d.opacity.data_ptr(), d.color.data_ptr(), d.depth.data_ptr(),
-            *(x.data_ptr() for x in out[:6]),
+            float(scaling_modifier), *rows, *(x.data_ptr() for x in out[:6]),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "preprocess_bwd")
@@ -274,11 +276,10 @@ class PreprocessFn(torch.autograd.Function):
         *params, active, override_color, tiles_touched = ctx.saved_tensors
         g = Gaussians(*params, active)
         scaling_modifier, sh_degree, tile = ctx.args
-        d = SplatGrads(mean2d=d_mean2d.contiguous(),
-                       conic=d_conic.contiguous(),
-                       opacity=d_opacity.contiguous(),
-                       color=d_color.contiguous(),
-                       depth=d_depth.contiguous())
+        d = SplatGrads(*(x if x.dim() == 1 or x.stride(1) == 1
+                         else x.contiguous()  # the kernel reads rows
+                         for x in (d_mean2d, d_conic, d_opacity, d_color,
+                                   d_depth)))
         r = preprocess_bwd(g, ctx.cam, tiles_touched, d, scaling_modifier,
                            override_color, sh_degree, tile)
         return (*r[:6], r.override_color,

@@ -14,6 +14,7 @@ import os
 import numpy as np
 
 from autovfx_tpu_torch import convert
+from autovfx_tpu_torch.core import device as devices
 from autovfx_tpu_torch.core import ply_io
 from autovfx_tpu_torch.core.gaussians import Gaussians
 from autovfx_tpu_torch.train.trainer import TrainState
@@ -42,7 +43,8 @@ def save_checkpoint(path: str, state: TrainState) -> None:
     np.savez_compressed(path, **state_arrays(state))
 
 
-def load_checkpoint(path: str, device="cpu") -> TrainState:
+def load_checkpoint(path: str, device=devices.DEFAULT) -> TrainState:
+    device = devices.resolve(device)
     with np.load(path) as d:
         return convert.train_state(dict(d), device=device)
 

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from autovfx_tpu_torch.core import device as devices
 from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS, Gaussians
 from autovfx_tpu_torch.core.quaternion import quat_normalize, quat_to_rotmat
 
@@ -33,7 +34,8 @@ class DensifyStats:
     max_radii: torch.Tensor  # (N,) int32 largest screen radius seen
 
     @classmethod
-    def zero(cls, capacity: int, device="cpu") -> "DensifyStats":
+    def zero(cls, capacity: int, device=devices.DEFAULT) -> "DensifyStats":
+        device = devices.resolve(device)
         return cls(
             grad_accum=torch.zeros((capacity,), device=device),
             denom=torch.zeros((capacity,), device=device),

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from autovfx_tpu_torch.core import device as devices
 from autovfx_tpu_torch.core.cameras import Camera, look_at_camera
 from autovfx_tpu_torch.core.gaussians import Gaussians, merge
 
@@ -23,8 +24,9 @@ def make_gaussians(
     scale_range: tuple[float, float] = (0.01, 0.08),
     sh_degree: int = 3,
     opacity_range: tuple[float, float] = (0.2, 0.95),
-    device="cpu",
+    device=devices.DEFAULT,
 ) -> Gaussians:
+    device = devices.resolve(device)
     f32 = np.float32
     xyz = rng.standard_normal((n, 3), dtype=f32) * f32(spread)
     rgb = rng.random((n, 3), dtype=f32)
@@ -49,9 +51,11 @@ def make_gaussians(
 
 
 def make_garden_like(
-    n: int = 3_000_000, seed: int = 0, extent: float = 3.0, device="cpu"
+    n: int = 3_000_000, seed: int = 0, extent: float = 3.0,
+    device=devices.DEFAULT,
 ) -> Gaussians:
     """A Garden-scale splat cloud: dense ground disc + clutter + far shell."""
+    device = devices.resolve(device)
     rng = np.random.default_rng(seed)
     n_ground = n // 2
     n_mid = n // 3
@@ -67,7 +71,8 @@ def make_garden_like(
     return merge(merge(g_ground, g_mid), g_far)
 
 
-def garden_camera(width: int = 1296, height: int = 840, device="cpu") -> Camera:
+def garden_camera(width: int = 1296, height: int = 840,
+                  device=devices.DEFAULT) -> Camera:
     """The Garden demo intrinsics at ``width`` x ``height``."""
     scale = width / 1296.0
     return look_at_camera(

@@ -33,13 +33,17 @@ in (never JAX, never ``autovfx_tpu``) and
    plain versions;
 6. times a training step with CUDA events, the device's idle share
    across 20 steps and their device time split by stage (both from the
-   profiler), the peak device memory, and each backward kernel's device
-   time beside its plain version's.
+   profiler), the peak device memory, each backward kernel's device
+   time beside its plain version's, and the forward kernels' at the
+   training shapes;
+7. puts each kernel's time on each path beside its bound (``bound``:
+   the least time the card could take, from the bytes and operations
+   that path's inputs need, ``*_work``) and their ratio, the share.
 
 Any failed check raises, so the exit code is not 0.  The last three
 lines of output are a JSON object of the kernels (with each path's own
-launch counts), the card's name and power limit as ``nvidia-smi``
-prints them, and a JSON object that says the run passed.
+launch counts, times and bounds), the card's name and power limit as
+``nvidia-smi`` prints them, and a JSON object that says the run passed.
 """
 from __future__ import annotations
 
@@ -119,24 +123,180 @@ KERNELS = {
     "preprocess": dict(
         source="autovfx_tpu_torch/csrc/preprocess.cu",
         replaces="autovfx_tpu/ops/preprocess_pallas.py:135",
+        library_ms=None, library_note="no single PyTorch call projects "
+        "splats: the plain version is ~60 tensor ops",
     ),
     "duplicate_with_keys": dict(
         source="autovfx_tpu_torch/csrc/duplicate.cu",
         replaces="autovfx_tpu/ops/fill_pallas.py:48",
+        library_ms=None, library_note="torch.repeat_interleave gives the "
+        "gid column but not the (tile, depth) keys",
     ),
     "blend_fwd": dict(
         source="autovfx_tpu_torch/csrc/blend_fwd.cu",
         replaces="autovfx_tpu/ops/blend_pallas.py:140",
+        library_ms=None, library_note="no PyTorch call alpha-blends "
+        "depth-sorted splats per tile",
     ),
     "blend_bwd": dict(
         source="autovfx_tpu_torch/csrc/blend_bwd.cu",
         replaces="autovfx_tpu/ops/blend_pallas_bwd.py:62",
+        library_ms=None, library_note="no PyTorch call computes the "
+        "blend's backward",
     ),
     "preprocess_bwd": dict(
         source="autovfx_tpu_torch/csrc/preprocess_bwd.cu",
         replaces="XLA autodiff of autovfx_tpu/ops/projection.py:74",
+        library_ms=None, library_note="no single PyTorch call; the plain "
+        "version is autograd of the preprocess",
     ),
 }
+# the path each kernel's top-level numbers come from (both where it runs
+# on both: the JSON line's "paths")
+MAIN_PATH = {"preprocess": "novel_view", "duplicate_with_keys": "novel_view",
+             "blend_fwd": "novel_view", "blend_bwd": "training",
+             "preprocess_bwd": "training"}
+
+# ---- bounds: the least time the card could take for a kernel's work ---------
+#
+# The larger of the bytes the function must move (each input read once,
+# each output written once) over the memory rate, and its operations over
+# the peak rate of their kind: float32 arithmetic, or the special-function
+# units' exp and reciprocal, at the SM clock nvidia-smi reads beside the
+# timing.  Peaks of an H100 SXM at 700 W (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+SMS, SFU_PER_SM_CLOCK = 132, 16
+# float32 operations (an FMA is 2) per blended (pixel, duplicate) pair,
+# counted from the kernels' expressions: the forward's blend of a pair
+# (alpha, T, the weight, color and depth), and the backward's (alpha,
+# 1 - alpha, f, T, dL/dalpha, S, dL/dpower and the ten gradient terms),
+# which also takes a reciprocal on the special-function units.  Only
+# blended pairs count: a kernel may cull the others by geometry without
+# evaluating them (kernel 4's patch skip does, per warp).
+BLEND_FLOPS, BLEND_BWD_FLOPS = 12, 50
+# A lower count of the per-splat arithmetic of the preprocess and its
+# backward: far below their byte time either way.
+PREPROCESS_FLOPS, PREPROCESS_BWD_FLOPS = 200, 400
+
+
+def bound(n_bytes: float, flops: float = 0.0, sfu_ops: float = 0.0,
+          sm_clock_mhz: float = 1980.0) -> dict:
+    """``bound_ms``, ``bound_by`` ("bytes" or "operations") and the rate
+    that bounds it ("memory", "f32" or "exp") for work that moves
+    ``n_bytes`` and does ``flops`` float32 and ``sfu_ops`` special-function
+    operations."""
+    times = {
+        "memory": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "f32": flops / F32_FLOPS_PER_S * 1e3,
+        "exp": sfu_ops / (SMS * SFU_PER_SM_CLOCK * sm_clock_mhz * 1e6) * 1e3,
+    }
+    rate = max(times, key=times.get)
+    return {"bound_ms": times[rate],
+            "bound_by": "bytes" if rate == "memory" else "operations",
+            "bound_rate": rate}
+
+
+def preprocess_work(n: int, k_rest: int) -> tuple[float, float, float]:
+    """Kernel 1 over ``n`` slots: (bytes, flops, sfu ops).  A slot reads
+    xyz, sh_dc, its SH rest row, log-scales, quaternion, opacity logit
+    and active flag, and writes mean2d, conic, opacity, color, depth,
+    radius, tile rect and tile count (the camera's 84 bytes once)."""
+    read = 4 * (3 + 3 + 3 * k_rest + 3 + 4 + 1) + 1
+    write = 4 * (2 + 3 + 1 + 3 + 1 + 1 + 2 + 2 + 1)
+    return n * (read + write) + 84, n * PREPROCESS_FLOPS, 0.0
+
+
+def duplicate_work(n: int, n_live: int, n_dups: int) -> tuple[float, float,
+                                                              float]:
+    """Kernel 2: every slot's tile count, a live slot's offset, rect and
+    depth, and an int64 key and an int32 gid per duplicate."""
+    return 4 * n + (8 + 8 + 8 + 4) * n_live + 12 * n_dups, 0.0, 0.0
+
+
+def preprocess_bwd_work(n: int, k_rest: int) -> tuple[float, float, float]:
+    """The preprocess backward over ``n`` slots: a slot reads its
+    parameters, its tile count and 10 output gradients, and writes one
+    gradient per parameter (516 bytes at 15 SH rest coefficients)."""
+    params = 3 + 3 + 3 * k_rest + 3 + 4 + 1
+    return n * 4 * (params + 1 + 10 + params) + 84, n * PREPROCESS_BWD_FLOPS, 0.0
+
+
+def blend_work(counts: dict, n_live: int, backward: bool = False,
+               train: bool = False) -> tuple[float, float, float]:
+    """Kernel 3 (``train``: its training variant) or kernel 4 over a view
+    whose ``pair_counts`` are ``counts``.  Bytes: each tile's range, the
+    gid of every duplicate up to the tile's last contributor, each live
+    splat's 10 features (and, for kernel 4, its 10 gradients), and per
+    pixel the images written (kernel 3: color, depth, alpha; T and
+    n_contrib for training) or read (kernel 4: T, n_contrib and the image
+    gradients).  Operations: the blend of each blended pair, its exp and,
+    backward, its reciprocal."""
+    per_pixel = 28 if backward or train else 20
+    n_bytes = (8 * counts["tiles"] + 4 * counts["dups_reached"]
+               + 40 * n_live * (2 if backward else 1)
+               + per_pixel * counts["pixels"])
+    flops = (BLEND_BWD_FLOPS if backward else BLEND_FLOPS) * counts["blended"]
+    return n_bytes, flops, (2 if backward else 1) * counts["blended"]
+
+
+def contrib_counts(n_contrib: torch.Tensor, tile: int) -> dict:
+    """From a view's ``BlendState.n_contrib`` (H, W): its pixels, tiles,
+    the (pixel, duplicate) pairs up to each pixel's last contributor (the
+    sum of n_contrib), the duplicates up to each tile's last one (the
+    sum over tiles of their largest n_contrib), and the most pairs of one
+    tile (a block's work: the kernels' longest block)."""
+    h, w = n_contrib.shape
+    tx, ty = (w + tile - 1) // tile, (h + tile - 1) // tile
+    full = n_contrib.new_zeros((ty * tile, tx * tile)).long()
+    full[:h, :w] = n_contrib
+    per_tile = full.reshape(ty, tile, tx, tile).transpose(1, 2).reshape(
+        ty * tx, tile * tile)
+    return {"pixels": h * w, "tiles": tx * ty,
+            "pairs": int(per_tile.sum()),
+            "dups_reached": int(per_tile.amax(dim=1).sum()),
+            "tile_pairs_max": int(per_tile.sum(dim=1).max())}
+
+
+def blended_pairs(P, binned, splats, width: int, height: int,
+                  tile: int) -> int:
+    """The (pixel, duplicate) pairs the blend blends: power <= 0, alpha >=
+    1/255 and before the pixel freezes, by the plain blend's own steps
+    (``blend_ref``) over batches of tiles, pixels inside the image."""
+    ref = P.ops.blend_ref
+    n_tiles = binned.tile_range.shape[0]
+    total = 0
+    for i in range(0, n_tiles, PLAIN_TILE_BATCH):
+        tiles = torch.arange(i, min(i + PLAIN_TILE_BATCH, n_tiles),
+                             device=binned.gid.device)
+        d = ref._duplicates(binned, tile, tiles)
+        g = d.gid
+        alpha = ref.compute_alpha(splats.mean2d[g], splats.conic[g],
+                                  splats.opacity[g], d.px, d.py)
+        log_t = ref._seg_exclusive(torch.log1p(-alpha), d.seg_start)
+        live = (alpha > 0) & ~(torch.exp(log_t) * (1.0 - alpha) < ref.T_EPS)
+        live &= (d.px < width) & (d.py < height)
+        total += int(live.sum())
+    return total
+
+
+def pair_counts(P, binned, splats, n_contrib, width, height, tile) -> dict:
+    """``contrib_counts`` of a view and its ``blended`` pairs."""
+    counts = contrib_counts(n_contrib, tile)
+    counts["blended"] = blended_pairs(P, binned, splats, width, height, tile)
+    return counts
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now (MHz)."""
+    return float(run_cmd(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"]).splitlines()[0])
+
+
+def timed_bound(ms: float, work: tuple, clock: float) -> dict:
+    """A kernel's time on one path beside its bound and share."""
+    b = bound(*work, sm_clock_mhz=clock)
+    return {"ms": ms, **b, "share": b["bound_ms"] / ms, "sm_clock_mhz": clock}
 
 
 def import_port():
@@ -283,16 +443,20 @@ def check_preprocess(got, want, what: str) -> float:
     of the float fields on the splats both call live."""
     live = (got.tiles_touched > 0) & (want.tiles_touched > 0)
     errs = []
-    d = (got.mean2d - want.mean2d).abs()[live]
-    tol = MEAN2D_ATOL + 2.0**-22 * want.mean2d.abs()[live]
-    check(bool((d <= tol).all()), f"{what}: mean2d off by {d.max().item()}")
-    errs.append(d.max().item())
+
+    def agree(f: str, tol) -> None:
+        # under the mask of live rows, with no boolean indexing (and so
+        # no nonzero): a culled row's fields are never read
+        d = (getattr(got, f) - getattr(want, f)).abs()
+        rows = live.reshape(-1, *[1] * (d.dim() - 1))
+        d_live = torch.where(rows, d, torch.zeros_like(d))
+        check(bool(((d <= tol) | ~rows).all()),
+              f"{what}: {f} off by {d_live.max().item()}")
+        errs.append(d_live.max().item())
+
+    agree("mean2d", MEAN2D_ATOL + 2.0**-22 * want.mean2d.abs())
     for f in ("conic", "color", "depth"):
-        a, b = getattr(got, f)[live], getattr(want, f)[live]
-        d = (a - b).abs()
-        check(bool((d <= FLOAT_ATOL + FLOAT_RTOL * b.abs()).all()),
-              f"{what}: {f} off by {d.max().item()}")
-        errs.append(d.max().item())
+        agree(f, FLOAT_ATOL + FLOAT_RTOL * getattr(want, f).abs())
     d = (got.opacity - want.opacity).abs()
     check(d.max().item() <= OPACITY_ATOL, f"{what}: opacity off by {d.max()}")
     errs.append(d.max().item())
@@ -403,7 +567,7 @@ def load_scene():
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
     t0 = time.perf_counter()
-    g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT)
+    g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device="cpu")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "garden_like.ply")
         ply_io.save_ply(path, g)
@@ -553,23 +717,51 @@ def operating_point(P, card: str) -> list[dict]:
                 budget)
     b = ops.binning.bin_splats(s, WIDTH, HEIGHT, budget, tile=TILE)
     all_tiles = torch.arange(tx * ty, device=DEVICE)
-    ms = {}
+    ms, clock = {}, {}
     ms["preprocess"] = in_turns(
         lambda: ops.projection.preprocess(g, cam, tile=TILE),
         lambda: ops.preprocess_cuda.preprocess_kernel(g, cam, tile=TILE),
         10, "preprocess_kernel")
+    clock["preprocess"] = sm_clock_mhz()
     ms["duplicate_with_keys"] = in_turns(
         lambda: ops.fill_cuda.duplicate_with_keys_plain(*dup_args),
         lambda: ops.fill_cuda.duplicate_with_keys_kernel(*dup_args),
         10, "duplicate_kernel")
+    clock["duplicate_with_keys"] = sm_clock_mhz()
     ms["blend_fwd"] = in_turns(
         lambda: blend_subset(P, b, s, all_tiles, TILE),
         lambda: ops.blend_cuda.blend_kernel(b, s, WIDTH, HEIGHT, TILE),
         2, "blend_kernel")
+    clock["blend_fwd"] = sm_clock_mhz()
     for k, (k_ms, p_ms) in ms.items():
         print(f"[{card}] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
               f"of device time (x{p_ms / k_ms:.1f})")
-    return launches, err, ms
+
+    # their bounds at these shapes
+    n_live = int((s.tiles_touched > 0).sum())
+    _, st = ops.blend_cuda.blend_train_kernel(b, s, WIDTH, HEIGHT, TILE)
+    pairs = pair_counts(P, b, s, st.n_contrib, WIDTH, HEIGHT, TILE)
+    work = {
+        "preprocess": preprocess_work(g.capacity, g.sh_rest.shape[1]),
+        "duplicate_with_keys": duplicate_work(g.capacity, n_live,
+                                              int(b.total_dups)),
+        "blend_fwd": blend_work(pairs, n_live),
+    }
+    perf = {k: {"novel_view": timed_bound(ms[k][0], work[k], clock[k])}
+            for k in work}
+    print(f"[{card}] first view: {n_live} live splats, {pairs}")
+    print_bounds(card, perf, "novel_view")
+    return launches, err, ms, perf
+
+
+def print_bounds(card: str, perf: dict, path: str) -> None:
+    for k, by_path in perf.items():
+        if path in by_path:
+            x = by_path[path]
+            print(f"[{card}] {k} on {path}: {x['ms']:.4f} ms, bound "
+                  f"{x['bound_ms']:.4f} ms by the {x['bound_rate']} rate "
+                  f"(SM clock {x['sm_clock_mhz']:.0f} MHz), share "
+                  f"{x['share']:.3f}")
 
 
 # ---- backward kernels --------------------------------------------------------
@@ -581,7 +773,7 @@ def check_fields(got, want, tol: float, what: str) -> tuple[float, float]:
     the largest such ratio."""
     worst, rel = 0.0, 0.0
     for name, a, b in zip(want._fields, got, want):
-        if b is None:
+        if b is None or b.numel() == 0:  # no such gradient, or no SH rest
             continue
         check(bool(torch.isfinite(a).all()), f"{what}: d {name} not finite")
         d = (a.double() - b.double()).abs().max().item()
@@ -593,12 +785,13 @@ def check_fields(got, want, tol: float, what: str) -> tuple[float, float]:
 
 
 def splat_grads(P, n: int, rng) -> object:
-    """Random output gradients of the preprocess, (N, ...) f32 on the card."""
-    t = lambda *shape: torch.from_numpy(
-        rng.standard_normal(shape).astype(np.float32)).to(DEVICE)
-    return P.ops.blend_ref.SplatGrads(mean2d=t(n, 2), conic=t(n, 3),
-                                      opacity=t(n), color=t(n, 3),
-                                      depth=t(n))
+    """Random output gradients of the preprocess on the card: column
+    slices of one (N, 10) f32 buffer, as kernel 4 hands them over."""
+    rows = torch.from_numpy(
+        rng.standard_normal((n, 10)).astype(np.float32)).to(DEVICE)
+    return P.ops.blend_ref.SplatGrads(mean2d=rows[:, 0:2],
+                                      conic=rows[:, 2:5], opacity=rows[:, 5],
+                                      color=rows[:, 6:9], depth=rows[:, 9])
 
 
 def image_grads(h: int, w: int, rng, keep=None):
@@ -642,10 +835,16 @@ def check_blend_bwd(P, g, cam, tile, rng, what, tiles=None):
     give the novel-view images.  Returns (max abs err, max error over
     the field's largest magnitude, pixels zeroed, pixels checked)."""
     ops = P.ops
-    w, h = cam.width, cam.height
     s = ops.preprocess_cuda.preprocess_kernel(g, cam, tile=tile)
     budget = ops.binning.round_budget(int(ops.binning.required_budget(s)))
-    b = ops.binning.bin_splats(s, w, h, budget, tile=tile)
+    b = ops.binning.bin_splats(s, cam.width, cam.height, budget, tile=tile)
+    return check_blend_bwd_binned(P, b, s, cam.width, cam.height, tile, rng,
+                                  what, tiles)
+
+
+def check_blend_bwd_binned(P, b, s, w, h, tile, rng, what, tiles=None):
+    """``check_blend_bwd`` on a binned view ``b`` of splats ``s``."""
+    ops = P.ops
     images, state = ops.blend_cuda.blend_train_kernel(b, s, w, h, tile)
     for x, y in zip(images, ops.blend_cuda.blend_kernel(b, s, w, h, tile)):
         check((x - y).abs().max().item() <= 1e-6,
@@ -843,7 +1042,7 @@ def training_point(P, card: str):
     return launches, err, train_timing(P, card, timed, cams, images, cfg)
 
 
-def train_timing(P, card, state, cams, images, cfg) -> dict:
+def train_timing(P, card, state, cams, images, cfg) -> tuple[dict, dict]:
     from autovfx_tpu_torch.train import trainer
 
     ops = P.ops
@@ -899,26 +1098,63 @@ def train_timing(P, card, state, cams, images, cfg) -> dict:
     d = splat_grads(P, g.capacity, rng)
     tx, ty = b.num_tiles_x, b.num_tiles_y
     all_tiles = torch.arange(tx * ty, device=DEVICE)
-    ms = {}
+    ms, clock = {}, {}
     ms["blend_bwd"] = in_turns(
         lambda: plain_blend_bwd(P, b, s, grads, TILE, all_tiles),
         lambda: ops.blend_cuda.blend_bwd_kernel(b, s, st, *grads, WIDTH,
                                                 HEIGHT, TILE),
         1, "blend_bwd_kernel")
+    clock["blend_bwd"] = sm_clock_mhz()
     ms["preprocess_bwd"] = in_turns(
         lambda: ops.preprocess_cuda.preprocess_bwd_plain(
             g, cam, s.tiles_touched, d, tile=TILE),
         lambda: ops.preprocess_cuda.preprocess_bwd_kernel(
             g, cam, s.tiles_touched, d, tile=TILE),
         10, "preprocess_bwd_kernel")
+    clock["preprocess_bwd"] = sm_clock_mhz()
     for k, (k_ms, p_ms) in ms.items():
         print(f"[{card}] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
               f"of device time (x{p_ms / k_ms:.1f})")
-    fwd = device_ms(lambda: ops.blend_cuda.blend_train_kernel(
-        b, s, WIDTH, HEIGHT, TILE), KERNEL_REPS, "blend_kernel")
-    print(f"[{card}] blend_fwd training variant: kernel {fwd:.3f} ms of "
-          "device time")
-    return ms, fwd
+
+    # the forward kernels at the training step's shapes
+    counts = s.tiles_touched
+    starts = torch.cumsum(counts, 0) - counts
+    dup_args = (counts, starts, s.tile_min, s.tile_max, s.depth, tx, tx * ty,
+                cfg.raster.dup_budget)
+    fwd_ms = {
+        "preprocess": device_ms(lambda: ops.preprocess_cuda.preprocess_kernel(
+            g, cam, tile=TILE), KERNEL_REPS, "preprocess_kernel"),
+        "duplicate_with_keys": device_ms(
+            lambda: ops.fill_cuda.duplicate_with_keys_kernel(*dup_args),
+            KERNEL_REPS, "duplicate_kernel"),
+        "blend_fwd": device_ms(lambda: ops.blend_cuda.blend_train_kernel(
+            b, s, WIDTH, HEIGHT, TILE), KERNEL_REPS, "blend_kernel"),
+    }
+    fwd_clock = sm_clock_mhz()
+    print(f"[{card}] forward kernels at the training shapes: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in fwd_ms.items())
+        + " of device time (kernel 3 as its training variant)")
+
+    # every kernel's bound at camera 0's shapes
+    k_rest = g.sh_rest.shape[1]
+    n_live = int((counts > 0).sum())
+    pairs = pair_counts(P, b, s, st.n_contrib, WIDTH, HEIGHT, TILE)
+    work = {
+        "preprocess": preprocess_work(g.capacity, k_rest),
+        "duplicate_with_keys": duplicate_work(g.capacity, n_live,
+                                              int(b.total_dups)),
+        "blend_fwd": blend_work(pairs, n_live, train=True),
+        "blend_bwd": blend_work(pairs, n_live, backward=True),
+        "preprocess_bwd": preprocess_bwd_work(g.capacity, k_rest),
+    }
+    times = {**fwd_ms, **{k: v[0] for k, v in ms.items()}}
+    perf = {k: {"training": timed_bound(times[k], work[k],
+                                        clock.get(k, fwd_clock))}
+            for k in work}
+    print(f"[{card}] camera 0 of the training state: {n_live} live splats, "
+          f"{pairs}")
+    print_bounds(card, perf, "training")
+    return ms, perf
 
 
 def main() -> None:
@@ -947,25 +1183,29 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     small_checks(P)
-    view_launches, err, ms = operating_point(P, card)
+    view_launches, err, ms, perf = operating_point(P, card)
     err.update(small_grad_checks(P))
-    train_launches, train_err, (train_ms, train_fwd_ms) = training_point(
+    train_launches, train_err, (train_ms, train_perf) = training_point(
         P, card)
     for k, e in train_err.items():
         err[k] = max(err.get(k, 0.0), e)
     ms.update(train_ms)
+    for k, x in train_perf.items():
+        perf.setdefault(k, {}).update(x)
     # each path's own counts; kernel 3 runs its training variant there
     train_launches["blend_fwd"] = train_launches.pop("blend_fwd_train")
-    extra = {"blend_fwd": {"training_variant_ms": train_fwd_ms}}
     kernels = []
     for k in KERNELS:
         by_path = {"novel_view": view_launches[k],
                    "training": train_launches[k]}
+        main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],
             launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=err[k], ms=ms[k][0], plain_ms=ms[k][1],
-            **extra.get(k, {})))
+            max_abs_err=err[k], ms=main["ms"], plain_ms=ms[k][1],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            bound_rate=main["bound_rate"], share=main["share"],
+            paths=perf[k]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -77,17 +77,18 @@ def assert_state_equals_arrays(state, arrays):
 
 def test_convert_train_state_is_exact(jax_state):
     arrays = jax_arrays(jax_state)
-    assert_state_equals_arrays(convert.train_state(arrays), arrays)
+    assert_state_equals_arrays(convert.train_state(arrays, device="cpu"), arrays)
 
 
 def test_jax_checkpoint_loads_into_the_port(jax_state, tmp_path):
     path = str(tmp_path / "jax.npz")
     JCk.save_checkpoint(path, jax_state)
-    assert_state_equals_arrays(Ck.load_checkpoint(path), jax_arrays(jax_state))
+    assert_state_equals_arrays(Ck.load_checkpoint(path, device="cpu"),
+                              jax_arrays(jax_state))
 
 
 def test_port_checkpoint_loads_into_jax(jax_state, tmp_path):
-    state = convert.train_state(jax_arrays(jax_state))
+    state = convert.train_state(jax_arrays(jax_state), device="cpu")
     path = str(tmp_path / "port.npz")
     Ck.save_checkpoint(path, state)
     back = JCk.load_checkpoint(path)
@@ -97,13 +98,13 @@ def test_port_checkpoint_loads_into_jax(jax_state, tmp_path):
 
 
 def test_port_round_trip_and_snapshot(jax_state, tmp_path):
-    state = convert.train_state(jax_arrays(jax_state))
+    state = convert.train_state(jax_arrays(jax_state), device="cpu")
     ckpt = Ck.save_snapshot(str(tmp_path / "model"), state, 7000)
     assert os.path.basename(ckpt) == "chkpnt7000.npz"
-    assert_state_equals_arrays(Ck.load_checkpoint(ckpt),
+    assert_state_equals_arrays(Ck.load_checkpoint(ckpt, device="cpu"),
                                Ck.state_arrays(state))
     ply = tmp_path / "model" / "point_cloud" / "iteration_7000" / "point_cloud.ply"
-    g = ply_io.load_ply(str(ply))
+    g = ply_io.load_ply(str(ply), device="cpu")
     assert g.capacity == int(state.gaussians.num_active) == 60
     torch.testing.assert_close(g.xyz, state.gaussians.xyz[:60])
 
@@ -116,16 +117,17 @@ def test_train_checkpoints_periodically(tmp_path):
     from autovfx_tpu_torch.train import trainer as T
     from autovfx_tpu_torch.utils.synthetic import make_gaussians
 
-    g = make_gaussians(40, np.random.default_rng(1))
+    g = make_gaussians(40, np.random.default_rng(1), device="cpu")
     cams = C.stack_cameras([C.look_at_camera([3.0, 0.5, 1.0], [0, 0, 0],
                                              [0, 0, 1], fx=20.0, fy=20.0,
-                                             width=24, height=16)])
+                                             width=24, height=16,
+                                             device="cpu")])
     imgs = torch.rand((1, 16, 24, 3), generator=torch.Generator().manual_seed(0))
     cfg = T.TrainConfig(iterations=5, raster=RasterConfig(dup_budget=1 << 12))
     path = str(tmp_path / "ckpt" / "state.npz")
     state, _ = T.train(g, cams, imgs, cfg, checkpoint_path=path,
                        checkpoint_every=2)
-    loaded = Ck.load_checkpoint(path)
+    loaded = Ck.load_checkpoint(path, device="cpu")
     assert loaded.step == state.step == 5 and loaded.adam.count == 5
     torch.testing.assert_close(loaded.gaussians.xyz, state.gaussians.xyz,
                                rtol=0, atol=0)

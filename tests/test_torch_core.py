@@ -36,14 +36,16 @@ def close(port, ref, rtol=RTOL, atol=ATOL):
 def carry(g):
     """JAX Gaussians -> port Gaussians through convert's array boundary."""
     return convert.gaussians(
-        {f: np.asarray(getattr(g, f)) for f in convert.GAUSSIAN_FIELDS}
+        {f: np.asarray(getattr(g, f)) for f in convert.GAUSSIAN_FIELDS},
+        device="cpu",
     )
 
 
 def carry_cam(cam):
     return convert.camera(
         {f: np.asarray(getattr(cam, f)) if f not in ("width", "height")
-         else getattr(cam, f) for f in convert.CAMERA_FIELDS}
+         else getattr(cam, f) for f in convert.CAMERA_FIELDS},
+        device="cpu",
     )
 
 
@@ -131,7 +133,8 @@ class TestCameras:
     def test_look_at_and_derived(self):
         kw = dict(fx=96.0, fy=90.0, width=128, height=96)
         cj = JC.look_at_camera([2.6, 0.3, 1.4], [0, 0, 0.2], [0, 0, 1], **kw)
-        ct = C.look_at_camera([2.6, 0.3, 1.4], [0, 0, 0.2], [0, 0, 1], **kw)
+        ct = C.look_at_camera([2.6, 0.3, 1.4], [0, 0, 0.2], [0, 0, 1], **kw,
+                              device="cpu")
         for f in ("R", "t", "fx", "fy", "cx", "cy"):
             close(getattr(ct, f), getattr(cj, f), rtol=0, atol=0)
         assert (ct.width, ct.height) == (cj.width, cj.height)
@@ -148,7 +151,8 @@ class TestCameras:
         )
         c2w[:3, 3] = rng.standard_normal(3)
         cj = JC.camera_from_c2w(c2w, 100.0, 101.0, 60.0, 40.0, 120, 80)
-        ct = C.camera_from_c2w(c2w, 100.0, 101.0, 60.0, 40.0, 120, 80)
+        ct = C.camera_from_c2w(c2w, 100.0, 101.0, 60.0, 40.0, 120, 80,
+                               device="cpu")
         close(ct.R, cj.R, rtol=0, atol=0)
         close(ct.t, cj.t, rtol=0, atol=0)
 
@@ -159,7 +163,8 @@ class TestCameras:
             [JC.look_at_camera(e, [0, 0, 0], [0, 0, 1], **kw) for e in eyes]
         )
         cams_t = C.stack_cameras(
-            [C.look_at_camera(e, [0, 0, 0], [0, 0, 1], **kw) for e in eyes]
+            [C.look_at_camera(e, [0, 0, 0], [0, 0, 1], **kw, device="cpu")
+             for e in eyes]
         )
         close(cams_t.R, cams_j.R, rtol=0, atol=0)
         one_t, one_j = C.index_camera(cams_t, 1), JC.index_camera(cams_j, 1)
@@ -168,9 +173,9 @@ class TestCameras:
         with pytest.raises(ValueError):
             C.stack_cameras([C.look_at_camera(eyes[0], [0, 0, 0], [0, 0, 1],
                                               fx=50.0, fy=50.0, width=32,
-                                              height=48),
+                                              height=48, device="cpu"),
                              C.look_at_camera(eyes[1], [0, 0, 0], [0, 0, 1],
-                                              **kw)])
+                                              **kw, device="cpu")])
 
 
 class TestPly:
@@ -186,7 +191,7 @@ class TestPly:
         assert pj.read_bytes() == pt.read_bytes()
 
         # reverse: each package reads the other's file and writes it back
-        back_t = P.load_ply(str(pj))
+        back_t = P.load_ply(str(pj), device="cpu")
         back_j = JP.load_ply(str(pt))
         P.save_ply(str(tmp_path / "t2.ply"), back_t)
         JP.save_ply(str(tmp_path / "j2.ply"), back_j)
@@ -199,21 +204,21 @@ class TestPly:
         p = tmp_path / "a.ply"
         p.write_bytes(b"ply\nformat ascii 1.0\nelement vertex 0\nend_header\n")
         with pytest.raises(ValueError):
-            P.load_ply(str(p))
+            P.load_ply(str(p), device="cpu")
 
 
 class TestConvertAndSynthetic:
     def test_convert_rejects_missing_field(self):
         with pytest.raises(ValueError):
-            convert.gaussians(xyz=np.zeros((1, 3)))
+            convert.gaussians(xyz=np.zeros((1, 3)), device="cpu")
 
     def test_garden_like_shapes_and_seed(self):
-        a = S.make_garden_like(3000, seed=1, extent=2.67)
-        b = S.make_garden_like(3000, seed=1, extent=2.67)
+        a = S.make_garden_like(3000, seed=1, extent=2.67, device="cpu")
+        b = S.make_garden_like(3000, seed=1, extent=2.67, device="cpu")
         assert a.capacity == 3000 and a.sh_degree == 3
         assert torch.equal(a.xyz, b.xyz)
         ground = a.xyz[: 1500, 2]
         assert float(ground.abs().max()) < 0.2  # the flattened disc
-        cam = S.garden_camera(648, 420)
+        cam = S.garden_camera(648, 420, device="cpu")
         assert (cam.width, cam.height) == (648, 420)
         close(cam.fx, 960.98 / 2)

@@ -28,7 +28,7 @@ from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS
 from autovfx_tpu_torch.ops import (
     binning, blend_cuda, fill_cuda, preprocess_cuda, projection,
 )
-from autovfx_tpu_torch.utils.synthetic import make_garden_like
+from autovfx_tpu_torch.utils.synthetic import make_garden_like, make_gaussians
 
 pytestmark = pytest.mark.cuda
 W, H = 200, 120
@@ -116,7 +116,8 @@ def test_render_normal_pass_matches_cpu(scene):
         "xyz", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logit",
         "active")})
     cam_cpu = look_at_camera([2.6, 0.4, 1.2], [0, 0, 0.2], [0, 0, 1],
-                             fx=150.0, fy=150.0, width=W, height=H)
+                             fx=150.0, fy=150.0, width=W, height=H,
+                             device="cpu")
     cpu = P.render(g_cpu, cam_cpu, config=cfg)
     assert cs.psnr(gpu.rgba.cpu(), cpu.rgba) > 60.0
     assert cs.psnr(gpu.normal.cpu(), cpu.normal) > 60.0
@@ -156,7 +157,8 @@ def test_overflow_is_flagged_and_finite(scene):
 def test_wrappers_refuse_what_kernels_do_not_take(scene):
     g, cam = scene
     cam_cpu = look_at_camera([2.6, 0.4, 1.2], [0, 0, 0.2], [0, 0, 1],
-                             fx=150.0, fy=150.0, width=W, height=H)
+                             fx=150.0, fy=150.0, width=W, height=H,
+                             device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         preprocess_cuda.preprocess_kernel(g, cam_cpu)
     rgb = torch.rand(3, g.capacity, device=g.xyz.device).t()  # not contiguous
@@ -202,6 +204,47 @@ def test_preprocess_bwd_options(scene, tile, kw):
         assert float(got.sh_dc.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("sh_degree, n, degree", [
+    (0, 1000, None), (1, 1037, None), (1, 1037, 0), (2, 777, 1),
+    (3, 1283, None), (3, 1283, 1), (4, 300, None), (4, 300, 2),
+])
+def test_preprocess_bwd_sh_rows_and_ragged_blocks(scene, sh_degree, n,
+                                                  degree):
+    """Stored SH degrees 0-4 (SH rest rows of 0, 3, 8, 15 and 24
+    coefficients: 24 needs more than 48 KB of shared memory), evaluated at
+    the stored degree or below it, over slot counts that leave the last
+    block of 128 splats ragged."""
+    _, cam = scene
+    dev = cam.R.device
+    g = make_gaussians(n, np.random.default_rng(n), spread=0.8,
+                       sh_degree=sh_degree, device=dev)
+    kw = {} if degree is None else {"sh_degree": degree}
+    s = projection.preprocess(g, cam, tile=16, **kw)
+    assert int((s.tiles_touched > 0).sum()) > n // 4  # most are in view
+    d = cs.splat_grads(P, n, np.random.default_rng(n + 1))
+    got = preprocess_cuda.preprocess_bwd_kernel(g, cam, s.tiles_touched, d,
+                                                **kw)
+    want = preprocess_cuda.preprocess_bwd_plain(g, cam, s.tiles_touched, d,
+                                                **kw)
+    cs.check_fields(got, want, cs.PRE_BWD_TOL,
+                    f"stored degree {sh_degree}, {n} slots, {kw}")
+
+
+def test_preprocess_bwd_reads_column_slices_as_copies(scene):
+    """The output gradients as column slices of one (N, 10) buffer (kernel
+    4's rows) and as contiguous copies give the same parameter
+    gradients, bit for bit."""
+    g, cam = scene
+    s = projection.preprocess(g, cam, tile=16)
+    d = cs.splat_grads(P, g.capacity, np.random.default_rng(11))
+    assert d.conic.stride() == (10, 1) and d.opacity.stride() == (10,)
+    sliced = preprocess_cuda.preprocess_bwd_kernel(g, cam, s.tiles_touched, d)
+    copied = preprocess_cuda.preprocess_bwd_kernel(
+        g, cam, s.tiles_touched, type(d)(*(x.contiguous() for x in d)))
+    for a, b in zip(sliced[:6], copied[:6]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("tile", [16, 32])
 @pytest.mark.parametrize("logit", [None, cs.SATURATED_LOGIT])
 def test_blend_bwd_matches_plain(scene, tile, logit):
@@ -211,6 +254,26 @@ def test_blend_bwd_matches_plain(scene, tile, logit):
                                                          logit))
     cs.check_blend_bwd(P, g, cam, tile, np.random.default_rng(7),
                        f"tile {tile} logit {logit}")
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_blend_bwd_thin_splats(scene, tile):
+    """Splats one pixel row tall or one column wide (conics of 40 across
+    them: alpha >= 1/255 within ~0.5 px), so each crosses the warps'
+    patches along one side only."""
+    g, cam = scene
+    s = preprocess_cuda.preprocess_kernel(g, cam, tile=tile)
+    n = g.capacity
+    row = torch.arange(n, device=g.xyz.device) % 2 == 0
+    wide, thin = 0.04, 40.0  # sigma 5 px along, 0.16 px across
+    conic = torch.stack([torch.where(row, wide, thin),
+                         torch.zeros(n, device=g.xyz.device),
+                         torch.where(row, thin, wide)], dim=1)
+    s = s._replace(conic=conic)
+    budget = binning.round_budget(int(binning.required_budget(s)))
+    b = binning.bin_splats(s, W, H, budget, tile=tile)
+    cs.check_blend_bwd_binned(P, b, s, W, H, tile, np.random.default_rng(12),
+                              f"thin splats, tile {tile}")
 
 
 def test_blend_bwd_on_a_tile_subset(scene):

@@ -24,9 +24,9 @@ RENDER_500 = textwrap.dedent("""
     from autovfx_tpu_torch.utils.synthetic import make_gaussians
     import numpy as np
 
-    g = make_gaussians(500, np.random.default_rng(0))
+    g = make_gaussians(500, np.random.default_rng(0), device="cpu")
     cam = look_at_camera([4.0, 0.6, 0.8], [0, 0, 0], [0, 0, 1],
-                         fx=57.6, fy=57.6, width=64, height=48)
+                         fx=57.6, fy=57.6, width=64, height=48, device="cpu")
     out = P.rasterize(g, cam, config=P.RasterConfig(dup_budget=1 << 14))
     assert out.color.shape == (48, 64, 3)
     assert torch.isfinite(out.color).all() and float(out.alpha.max()) > 0.1
@@ -85,9 +85,9 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     monkeypatch.setattr(_build, "load_library", refuse)
     monkeypatch.setattr(_build, "build", refuse)
     counts = launches()
-    g = make_garden_like(3000, seed=2, extent=2.67)
+    g = make_garden_like(3000, seed=2, extent=2.67, device="cpu")
     cam = look_at_camera([2.6, 0.0, 1.4], [0, 0, 0.2], [0, 0, 1],
-                         fx=48.0, fy=48.0, width=64, height=48)
+                         fx=48.0, fy=48.0, width=64, height=48, device="cpu")
     config = autovfx_tpu_torch.RasterConfig(dup_budget=1 << 15, tile=32)
     out = autovfx_tpu_torch.render(g, cam, config=config)
     assert out.rgba.shape == (48, 64, 4)
@@ -119,6 +119,111 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.SIGNATURES:
         text = "".join(p.read_text() for p in _build.sources())
         assert f'extern "C" int {name}(' in text, name
+
+
+def _entry_points():
+    """The loaders and constructors that put tensors on a device."""
+    from autovfx_tpu_torch import convert
+    from autovfx_tpu_torch.core import cameras, ply_io
+    from autovfx_tpu_torch.train import checkpoint, densify
+    from autovfx_tpu_torch.utils import synthetic
+
+    return {
+        "load_ply": ply_io.load_ply,
+        "load_checkpoint": checkpoint.load_checkpoint,
+        "convert.gaussians": convert.gaussians,
+        "convert.camera": convert.camera,
+        "convert.train_state": convert.train_state,
+        "camera_from_c2w": cameras.camera_from_c2w,
+        "look_at_camera": cameras.look_at_camera,
+        "make_gaussians": synthetic.make_gaussians,
+        "make_garden_like": synthetic.make_garden_like,
+        "garden_camera": synthetic.garden_camera,
+        "DensifyStats.zero": densify.DensifyStats.zero,
+    }
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    for name, fn in _entry_points().items():
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", (name, default)
+
+
+def _calls(tmp_path):
+    """Each entry point's call with no device named, on inputs made on
+    the CPU."""
+    import numpy as np
+
+    from autovfx_tpu_torch import convert
+    from autovfx_tpu_torch.core import cameras, ply_io
+    from autovfx_tpu_torch.train import checkpoint, trainer
+    from autovfx_tpu_torch.utils import synthetic
+
+    fns = _entry_points()
+    g = synthetic.make_gaussians(20, np.random.default_rng(0), device="cpu")
+    cam = cameras.look_at_camera([3.0, 0.0, 1.0], [0, 0, 0], [0, 0, 1],
+                                 fx=20.0, fy=20.0, width=24, height=16,
+                                 device="cpu")
+    ply = str(tmp_path / "g.ply")
+    ply_io.save_ply(ply, g)
+    ckpt = str(tmp_path / "state.npz")
+    state = trainer.init_state(g)
+    checkpoint.save_checkpoint(ckpt, state)
+    g_arrays = {f: getattr(g, f).numpy() for f in convert.GAUSSIAN_FIELDS}
+    cam_arrays = {f: (getattr(cam, f).numpy()
+                      if f not in ("width", "height") else getattr(cam, f))
+                  for f in convert.CAMERA_FIELDS}
+    state_arrays = checkpoint.state_arrays(state)
+    return {
+        "load_ply": lambda: fns["load_ply"](ply),
+        "load_checkpoint": lambda: fns["load_checkpoint"](ckpt),
+        "convert.gaussians": lambda: fns["convert.gaussians"](g_arrays),
+        "convert.camera": lambda: fns["convert.camera"](cam_arrays),
+        "convert.train_state": lambda: fns["convert.train_state"](
+            state_arrays),
+        "camera_from_c2w": lambda: fns["camera_from_c2w"](
+            np.eye(4), 20.0, 20.0, 12.0, 8.0, 24, 16),
+        "look_at_camera": lambda: fns["look_at_camera"](
+            [3.0, 0.0, 1.0], [0, 0, 0], [0, 0, 1], fx=20.0, fy=20.0,
+            width=24, height=16),
+        "make_gaussians": lambda: fns["make_gaussians"](
+            20, np.random.default_rng(0)),
+        "make_garden_like": lambda: fns["make_garden_like"](30),
+        "garden_camera": lambda: fns["garden_camera"](24, 16),
+        "DensifyStats.zero": lambda: fns["DensifyStats.zero"](20),
+    }
+
+
+def _tensors(x):
+    import dataclasses
+
+    import torch
+
+    if torch.is_tensor(x):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif not isinstance(x, (tuple, list)):
+        return []
+    return [t for v in x for t in _tensors(v)]
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_without_a_device(name, tmp_path):
+    """With no device named, each entry point puts its tensors on the
+    card, or, where there is none, raises an error that names the
+    remedy; it never falls back to the CPU."""
+    import torch
+
+    call = _calls(tmp_path)[name]
+    if torch.cuda.is_available():
+        tensors = _tensors(call())
+        assert tensors and all(t.is_cuda for t in tensors), name
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
 
 
 def test_missing_nvcc_raises(monkeypatch):

@@ -49,11 +49,13 @@ def scene():
         fx=96.0, fy=96.0, width=128, height=96,
     )
     gt = convert.gaussians(
-        {f: np.asarray(getattr(g, f)) for f in convert.GAUSSIAN_FIELDS}
+        {f: np.asarray(getattr(g, f)) for f in convert.GAUSSIAN_FIELDS},
+        device="cpu",
     )
     ct = convert.camera(
         {f: np.asarray(getattr(cam, f)) if f not in ("width", "height")
-         else getattr(cam, f) for f in convert.CAMERA_FIELDS}
+         else getattr(cam, f) for f in convert.CAMERA_FIELDS},
+        device="cpu",
     )
     return g, cam, gt, ct
 
@@ -111,7 +113,8 @@ def test_override_color_and_inactive(scene):
     active = np.arange(n) % 4 != 0
     gj = g.replace(active=jnp.asarray(active))
     gp = convert.gaussians(
-        {f: np.asarray(getattr(gj, f)) for f in convert.GAUSSIAN_FIELDS}
+        {f: np.asarray(getattr(gj, f)) for f in convert.GAUSSIAN_FIELDS},
+        device="cpu",
     )
     ref = JPr.preprocess(gj, cam, override_color=jnp.asarray(rgb))
     port = projection.preprocess(gp, ct, override_color=torch.from_numpy(rgb))

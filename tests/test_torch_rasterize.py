@@ -53,11 +53,13 @@ def scene():
         fx=96.0, fy=96.0, width=128, height=96,
     )
     gt = convert.gaussians(
-        {f: np.asarray(getattr(g, f)) for f in convert.GAUSSIAN_FIELDS}
+        {f: np.asarray(getattr(g, f)) for f in convert.GAUSSIAN_FIELDS},
+        device="cpu",
     )
     ct = convert.camera(
         {f: np.asarray(getattr(cam, f)) if f not in ("width", "height")
-         else getattr(cam, f) for f in convert.CAMERA_FIELDS}
+         else getattr(cam, f) for f in convert.CAMERA_FIELDS},
+        device="cpu",
     )
     return g, cam, gt, ct
 

@@ -48,13 +48,15 @@ BUDGET = 1 << 14
 
 def port_gaussians(g) -> Gaussians:
     return convert.gaussians({f: np.asarray(getattr(g, f))
-                              for f in convert.GAUSSIAN_FIELDS})
+                              for f in convert.GAUSSIAN_FIELDS},
+                             device="cpu")
 
 
 def port_camera(cam) -> C.Camera:
     return convert.camera({f: np.asarray(getattr(cam, f))
                            if f not in ("width", "height") else getattr(cam, f)
-                           for f in convert.CAMERA_FIELDS})
+                           for f in convert.CAMERA_FIELDS},
+                          device="cpu")
 
 
 def t(x):
@@ -509,7 +511,8 @@ def test_fit_improves_psnr():
     cfg_r = RasterConfig(dup_budget=1 << 13)
     cams = C.stack_cameras([
         C.look_at_camera([3 * np.cos(a), 3 * np.sin(a), 1.0], [0, 0, 0],
-                         [0, 0, 1], fx=40.0, fy=40.0, width=48, height=36)
+                         [0, 0, 1], fx=40.0, fy=40.0, width=48, height=36,
+                         device="cpu")
         for a in np.linspace(0, 2 * np.pi, 6, endpoint=False)])
     imgs = torch.stack([rasterize(gt_g, C.index_camera(cams, i),
                                   config=cfg_r).color for i in range(6)])
