@@ -32,15 +32,19 @@
 // that its warp does not skip; the per-(duplicate, warp) reduction is
 // what the design keeps small:
 // - a warp owns a compact patch, each lane a Q x Q quad (16 x 8 pixels
-//   at tile 32, 8 x 4 at tile 16; 2 patches across the tile, 4 down),
-//   so a small splat meets few warps, and a warp none of whose pixels
-//   blended the duplicate skips its reduction;
+//   at tile 32, 8 x 4 at tile 16; 2 patches across the tile, 4 down; the
+//   forward's map, blend_common.cuh), so a small splat meets few warps,
+//   and a warp none of whose pixels blended the duplicate skips its
+//   reduction;
 // - a warp skips a duplicate that provably blends no pixel of its patch
-//   (`patch_mask`): no pair that the forward blended is ever skipped;
+//   (`patch_mask`, shared with the forward): no pair that the forward
+//   blended is ever skipped;
 // - the reduction is a transposing reduce-scatter: the 10 fields,
 //   padded to 16, are halved across lanes in 4 rounds of 8, 4, 2 and 1
 //   shuffles plus one, 16 in all (a shuffle tree per field takes 50),
 //   and 10 lanes then hold one field's sum each for the shared atomics;
+// - the power is spelled with intrinsics, as in kernel 3
+//   (blend_common.cuh), so both round each pair's alpha alike;
 // - one reciprocal of (1 - alpha) serves both divisions;
 // - registers are capped so that 3 blocks fit on an SM (80 registers, a
 //   few spilled): a thread holds 4 pixels' state and 10 sums, and at 2
@@ -56,6 +60,7 @@ namespace {
 using blend::kAlphaMax;
 using blend::kAlphaMin;
 using blend::kThreads;
+using blend::patch_mask;
 
 constexpr int kFields = 10;
 constexpr int kSlots = 16;  // kFields padded to a power of two
@@ -92,45 +97,6 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[kSlots],
   scatter_round<2>(v, lane);
   scatter_round<1>(v, lane);
   return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
-}
-
-// Bit w set for each warp patch w of the tile at (ox, oy) in which the
-// duplicate (xy, conic and opacity co) may blend a pixel; a clear bit is
-// a proof that it blends none there.  A blended pixel has op * exp(p) >=
-// 1/255 for the float32 power p the kernels compute, and p differs from
-// the exact -q/2 (q = a dx^2 + 2 b dx dy + c dy^2) by at most ~7 float32
-// ulps of the terms' magnitudes, which is at most 0.5 G q with G = (1 +
-// rho) / (1 - rho), rho = |b| / sqrt(ac).  With a 1e-5 margin for each
-// (~25 times those roundings, and exp's and the product's), a blended
-// pixel has q <= r2 = 2 (ln(255 op) + 1e-5) / (1 - 1e-5 G), and so lies
-// in the bounding box of that ellipse, here computed in double.  Where
-// an input is not finite or the bound does not hold, every bit is set.
-template <int Q>
-__device__ unsigned patch_mask(float2 xy, float4 co, int ox, int oy) {
-  static_assert(kThreads / 32 == 8, "8 warp patches per tile");
-  constexpr unsigned kAll = 0xffu;
-  if (!(isfinite(xy.x) && isfinite(xy.y) && isfinite(co.x) &&
-        isfinite(co.y) && isfinite(co.z) && isfinite(co.w)))
-    return kAll;
-  const double a = co.x, b = co.y, c = co.z, op = co.w;
-  const double det = a * c - b * b;
-  if (!(a > 0.0 && c > 0.0 && det > 0.0)) return kAll;
-  const double rho = fabs(b) / sqrt(a * c);
-  const double slack = 1e-5 * (1.0 + rho) / (1.0 - rho);
-  if (!(slack < 0.5)) return kAll;
-  if (!(255.0 * op > 0.0)) return 0u;  // op <= 0: alpha is never >= 1/255
-  const double r2 = 2.0 * (log(255.0 * op) + 1e-5) / (1.0 - slack);
-  if (r2 < 0.0) return 0u;
-  const double hx = sqrt(r2 * c / det), hy = sqrt(r2 * a / det);
-  unsigned mask = 0u;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const double x0 = ox + (w & 1) * 8 * Q, y0 = oy + (w >> 1) * 4 * Q;
-    if (xy.x + hx >= x0 && xy.x - hx <= x0 + (8 * Q - 1) &&
-        xy.y + hy >= y0 && xy.y - hy <= y0 + (4 * Q - 1))
-      mask |= 1u << w;
-  }
-  return mask;
 }
 
 template <int Q>  // a thread's pixels: Q x Q (1 at tile 16, 2 at tile 32)
@@ -226,8 +192,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         if (k_rel >= last[j]) continue;  // after the pixel's last blend
         const float dx = xy.x - (px0 + (float)pixel_dx<Q>(j));
         const float dy = xy.y - (py0 + (float)pixel_dy<Q>(j));
-        const float power =  // as in blend_fwd.cu (blend_common.cuh)
-            -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
+        const float power = __fmaf_rn(  // as in blend_common.cuh
+            -0.5f, __fmaf_rn(__fmul_rn(co.x, dx), dx,
+                             __fmul_rn(__fmul_rn(co.z, dy), dy)),
+            -__fmul_rn(__fmul_rn(co.y, dx), dy));
         if (power > 0.0f) continue;
         const float gauss = expf(power);
         const float alpha = fminf(kAlphaMax, co.w * gauss);

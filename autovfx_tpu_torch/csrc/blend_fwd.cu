@@ -12,15 +12,30 @@
 // not carry over.  The background term is added by the caller.
 //
 // What bounds it on this card: the exp and the handful of FMAs per
-// (duplicate, pixel) pair, and the gid-indexed feature reads (10 floats
-// per duplicate, scattered over the per-Gaussian arrays).  The simple
-// design is renderCUDA's: one block per tile, 256 threads, each thread
-// owning tile^2 / 256 pixels (1 at tile 16, 4 at tile 32, so a block
-// never needs more than 256 threads' registers); the block stages
-// batches of 256 duplicates in shared memory, each thread loading one
-// duplicate's features by its gid, so the TPU path's (16|8, K) per-
-// duplicate feature gather disappears.  A block stops when all of its
-// pixels are frozen.  Results go straight into the (H, W, ...) images.
+// blended (duplicate, pixel) pair, and the gid-indexed feature reads
+// (10 floats per duplicate, scattered over the per-Gaussian arrays).
+// One block of 256 threads per tile stages batches of 256 duplicates in
+// shared memory, each thread loading one duplicate's features by its
+// gid, so the TPU path's (16|8, K) per-duplicate feature gather
+// disappears.  What the design does about the work per pair, which
+// holds the issue slots (a block alone takes ~1/3 of the kernel's time,
+// so the tiles' uneven work does not):
+// - each warp owns a compact patch of the tile and each lane a Q x Q
+//   quad of it, kernel 4's map (blend_common.cuh), so a small splat
+//   meets few warps;
+// - each staged duplicate gets its `patch_mask`, and a warp walks only
+//   the duplicates whose bit it holds (a ballot over 32 masks at a
+//   time): a clear bit proves that the duplicate blends no pixel of the
+//   patch, so every pixel sees the same blended duplicates in the same
+//   order, and the images are bit for bit those of a walk over all;
+// - a thread's pixels take each duplicate without a branch, so their
+//   four chains overlap and share the products of a common dx or dy; the
+//   power is spelled with intrinsics, as in kernel 4 (blend_common.cuh),
+//   so that the sharing cannot change its rounding;
+// - a warp whose pixels are all frozen does no more pair work, and the
+//   block stops when every pixel is frozen;
+// - registers are capped so that 3 blocks fit on an SM (uncapped, 88
+//   make it 2; at 4, 64 spill; both ran no faster).
 //
 // The training variant (template flag TRAIN, entry `blend_fwd_train`)
 // also stores each pixel's final transmittance and n_contrib, the
@@ -39,9 +54,14 @@ using blend::kAlphaMax;
 using blend::kAlphaMin;
 using blend::kThreads;
 using blend::kTEps;
+using blend::patch_mask;
 
-template <int PPT, bool TRAIN>
-__global__ void __launch_bounds__(kThreads) blend_kernel(
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMinBlocks = 3;  // blocks per SM the registers must allow
+
+// a thread's pixels: Q x Q (1 at tile 16, 2 at tile 32)
+template <int Q, bool TRAIN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) blend_kernel(
     const int* __restrict__ tile_range, const int* __restrict__ gid,
     const float* __restrict__ mean2d, const float* __restrict__ conic,
     const float* __restrict__ opacity, const float* __restrict__ color,
@@ -49,27 +69,31 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(
     int height, float* __restrict__ out_color, float* __restrict__ out_depth,
     float* __restrict__ out_alpha, float* __restrict__ out_final_t,
     int* __restrict__ out_n_contrib) {
+  constexpr int PPT = Q * Q;
   __shared__ float2 s_xy[kThreads];
   __shared__ float4 s_conic_op[kThreads];
   __shared__ float4 s_rgbd[kThreads];
+  __shared__ unsigned s_mask[kThreads];  // patch_mask of each duplicate
 
   const int t = blockIdx.x;
   const int ox = (t % tiles_x) * tile;
   const int oy = (t / tiles_x) * tile;
   const int start = tile_range[2 * t];
   const int end = tile_range[2 * t + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  float px[PPT], py[PPT], T[PPT], C[PPT][3], D[PPT];
+  // the thread's first pixel: its quad's corner in the warp's patch
+  const int x0 = ox + (warp & 1) * 8 * Q + (lane & 7) * Q;
+  const int y0 = oy + (warp >> 1) * 4 * Q + (lane >> 3) * Q;
+  const float px0 = (float)x0, py0 = (float)y0;  // + small ints: exact
+  float T[PPT], C[PPT][3], D[PPT];
   int last[PPT];
-  bool inside[PPT], done[PPT];
+  bool done[PPT];
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    const int p = threadIdx.x + j * kThreads;
-    const int x = ox + p % tile, y = oy + p / tile;
-    px[j] = (float)x;
-    py[j] = (float)y;
-    inside[j] = x < width && y < height;
-    done[j] = !inside[j];
+    const int x = x0 + j % Q, y = y0 + j / Q;
+    done[j] = !(x < width && y < height);
     T[j] = 1.0f;
     C[j][0] = C[j][1] = C[j][2] = 0.0f;
     D[j] = 0.0f;
@@ -80,55 +104,70 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(
     bool mine_done = true;
 #pragma unroll
     for (int j = 0; j < PPT; ++j) mine_done = mine_done && done[j];
-    // also the barrier that keeps last batch's readers ahead of the loads
+    // also the barrier that keeps last batch's readers ahead of the stores
     if (__syncthreads_count(mine_done) == kThreads) break;
 
-    const int k = base + threadIdx.x;
-    if (k < end) {
-      const int g = gid[k];
-      s_xy[threadIdx.x] = make_float2(mean2d[2 * g], mean2d[2 * g + 1]);
-      s_conic_op[threadIdx.x] = make_float4(conic[3 * g], conic[3 * g + 1],
-                                            conic[3 * g + 2], opacity[g]);
+    const int count = min(kThreads, end - base);
+    if (threadIdx.x < count) {
+      const int g = gid[base + threadIdx.x];
+      const float2 xy = make_float2(mean2d[2 * g], mean2d[2 * g + 1]);
+      const float4 co = make_float4(conic[3 * g], conic[3 * g + 1],
+                                    conic[3 * g + 2], opacity[g]);
+      s_xy[threadIdx.x] = xy;
+      s_conic_op[threadIdx.x] = co;
       s_rgbd[threadIdx.x] = make_float4(color[3 * g], color[3 * g + 1],
                                         color[3 * g + 2], depth[g]);
+      s_mask[threadIdx.x] = patch_mask<Q>(xy, co, ox, oy);
     }
     __syncthreads();
+    if (__all_sync(kFull, mine_done)) continue;  // the warp's pixels froze
 
-    const int count = min(kThreads, end - base);
-    for (int m = 0; m < count; ++m) {
-      const float2 xy = s_xy[m];
-      const float4 co = s_conic_op[m];
-#pragma unroll
-      for (int j = 0; j < PPT; ++j) {
-        if (done[j]) continue;
-        const float dx = xy.x - px[j];
-        const float dy = xy.y - py[j];
-        const float power =  // as in blend_bwd.cu (blend_common.cuh)
-            -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(kAlphaMax, co.w * expf(power));
-        if (alpha < kAlphaMin) continue;
-        const float test_T = T[j] * (1.0f - alpha);
-        if (test_T < kTEps) {
-          done[j] = true;
-          continue;
-        }
+    for (int c = 0; c < count; c += 32) {
+      const int mc = c + lane;
+      const bool hit = mc < count && ((s_mask[mc] >> warp) & 1u) != 0u;
+      unsigned hits = __ballot_sync(kFull, hit);
+      while (hits != 0u) {  // the warp's duplicates, in order
+        const int m = c + __ffs(hits) - 1;
+        hits &= hits - 1u;
+        const float2 xy = s_xy[m];
+        const float4 co = s_conic_op[m];
         const float4 rgbd = s_rgbd[m];
-        const float w = alpha * T[j];
-        C[j][0] += rgbd.x * w;
-        C[j][1] += rgbd.y * w;
-        C[j][2] += rgbd.z * w;
-        D[j] += rgbd.w * w;
-        T[j] = test_T;
-        if (TRAIN) last[j] = base + m - start + 1;
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {  // no branch: the pixels overlap
+          const float dx = xy.x - (px0 + (float)(j % Q));
+          const float dy = xy.y - (py0 + (float)(j / Q));
+          const float power = __fmaf_rn(  // as in blend_common.cuh
+              -0.5f, __fmaf_rn(__fmul_rn(co.x, dx), dx,
+                               __fmul_rn(__fmul_rn(co.z, dy), dy)),
+              -__fmul_rn(__fmul_rn(co.y, dx), dy));
+          const float alpha = fminf(kAlphaMax, co.w * expf(power));
+          const float test_T = T[j] * (1.0f - alpha);
+          const bool blends =
+              !done[j] && !(power > 0.0f) && !(alpha < kAlphaMin);
+          const bool freezes = blends && test_T < kTEps;
+          done[j] = done[j] || freezes;
+          if (!blends || freezes) continue;
+          const float w = alpha * T[j];
+          C[j][0] += rgbd.x * w;
+          C[j][1] += rgbd.y * w;
+          C[j][2] += rgbd.z * w;
+          D[j] += rgbd.w * w;
+          T[j] = test_T;
+          if (TRAIN) last[j] = base + m - start + 1;
+        }
       }
+      bool frozen = true;
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) frozen = frozen && done[j];
+      if (__all_sync(kFull, frozen)) break;
     }
   }
 
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    if (!inside[j]) continue;
-    const int pix = (int)py[j] * width + (int)px[j];
+    const int x = x0 + j % Q, y = y0 + j / Q;
+    if (!(x < width && y < height)) continue;
+    const int pix = y * width + x;
     out_color[3 * pix] = C[j][0];
     out_color[3 * pix + 1] = C[j][1];
     out_color[3 * pix + 2] = C[j][2];
@@ -155,7 +194,7 @@ int launch(const int* tile_range, const int* gid, const float* mean2d,
           tile, width, height, out_color, out_depth, out_alpha, out_final_t,
           out_n_contrib);
     } else if (tile == 32) {
-      blend_kernel<4, TRAIN><<<n_tiles, kThreads, 0, s>>>(
+      blend_kernel<2, TRAIN><<<n_tiles, kThreads, 0, s>>>(
           tile_range, gid, mean2d, conic, opacity, color, depth, tiles_x,
           tile, width, height, out_color, out_depth, out_alpha, out_final_t,
           out_n_contrib);

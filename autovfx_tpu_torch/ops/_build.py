@@ -75,8 +75,8 @@ SIGNATURES = {
     "duplicate_with_keys": [
         _I,  # n
         _P, _P, _P, _P, _P,  # tiles_touched, starts, tile_min, tile_max, depth
-        _I, _I64,  # tiles_x, budget
-        _P, _P,  # keys, gids
+        _I, _I, _I64,  # tiles_x, n_tiles, budget
+        _P, _P,  # keys, gids (every slot below the budget written)
         _P,  # stream
     ],
     "blend_fwd": [

@@ -22,7 +22,9 @@ so ``tiles`` lets a caller blend a subset of a full-size frame.
 same per-tile vectorization, with a float64 suffix sum for the
 back-to-front terms and an ``index_add_`` by gid.  ``ambiguous_pixels``
 marks the pixels where a float32 kernel may decide a duplicate
-otherwise.
+otherwise.  ``patch_mask_plain`` is the kernels' proof that a duplicate
+blends no pixel of a warp patch (``csrc/blend_common.cuh``);
+``last_blended`` is the training forward's ``n_contrib``.
 """
 from __future__ import annotations
 
@@ -117,6 +119,66 @@ def _seg_exclusive(x: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
     return torch.clamp(_seg_cumsum(x, seg_start) - x, max=0.0).to(torch.float32)
 
 
+def patch_mask_plain(
+    mean2d: torch.Tensor,  # (K, 2)
+    conic: torch.Tensor,  # (K, 3)
+    opacity: torch.Tensor,  # (K,)
+    ox: torch.Tensor,  # (K,) the origin of each duplicate's tile
+    oy: torch.Tensor,
+    tile: int,
+) -> torch.Tensor:
+    """(K, 8) bool: ``patch_mask`` of ``csrc/blend_common.cuh`` for a
+    batch of duplicates, bit w in column w.  False proves that the
+    duplicate blends no pixel of warp patch w (8Q x 4Q pixels at (w & 1)
+    * 8Q, (w >> 1) * 4Q of the tile, Q = tile / 16): such a pixel has q =
+    dᵀ·conic·d within the bounding box of q <= 2 (ln(255 op) + 1e-5) /
+    (1 - 1e-5 G), G = (1 + ρ) / (1 - ρ), ρ = |b| / sqrt(ac), computed in
+    float64.  True everywhere where an input is not finite or the bound
+    does not hold."""
+    q = tile // 16
+    x, y = mean2d.double().unbind(1)
+    a, b, c = conic.double().unbind(1)
+    op = opacity.double()
+    finite = torch.isfinite(mean2d).all(1) & torch.isfinite(conic).all(1) \
+        & torch.isfinite(opacity)
+    det = a * c - b * b
+    bounded = finite & (a > 0) & (c > 0) & (det > 0)
+    rho = b.abs() / torch.sqrt(a * c)
+    slack = 1e-5 * (1.0 + rho) / (1.0 - rho)
+    bounded &= slack < 0.5
+    r2 = 2.0 * (torch.log(255.0 * op) + 1e-5) / (1.0 - slack)
+    empty = ~(255.0 * op > 0) | (r2 < 0)
+    hx = torch.sqrt(r2 * c / det)[:, None]
+    hy = torch.sqrt(r2 * a / det)[:, None]
+    w = torch.arange(8, device=mean2d.device)
+    x0 = (ox[:, None] + (w & 1) * 8 * q).double()
+    y0 = (oy[:, None] + (w >> 1) * 4 * q).double()
+    hit = ((x[:, None] + hx >= x0) & (x[:, None] - hx <= x0 + (8 * q - 1))
+           & (y[:, None] + hy >= y0) & (y[:, None] - hy <= y0 + (4 * q - 1)))
+    hit &= ~empty[:, None]
+    return torch.where(bounded[:, None], hit, torch.ones_like(hit))
+
+
+def pixel_patch(tile: int, device=None) -> torch.Tensor:
+    """(tile²,) the warp patch of each pixel of a tile (row-major)."""
+    q = tile // 16
+    p = torch.arange(tile * tile, device=device)
+    return (p % tile) // (8 * q) + 2 * ((p // tile) // (4 * q))
+
+
+def _patch_kept(d: _Dups, splats: Splats2D, binned: BinnedSplats,
+                tile: int) -> torch.Tensor:
+    """(K_sel, tile²) bool: False at the pixels of the patches each
+    duplicate provably misses (``patch_mask_plain``)."""
+    g = d.gid
+    t = d.tiles[d.seg]
+    tx = binned.num_tiles_x
+    mask = patch_mask_plain(splats.mean2d[g], splats.conic[g],
+                            splats.opacity[g], (t % tx) * tile,
+                            (t // tx) * tile, tile)
+    return mask[:, pixel_patch(tile, g.device)]
+
+
 def blend_tiles_ref(
     binned: BinnedSplats,
     splats: Splats2D,
@@ -131,7 +193,6 @@ def blend_tiles_ref(
     alpha = compute_alpha(
         splats.mean2d[g], splats.conic[g], splats.opacity[g], d.px, d.py,
     )  # (K_sel, P)
-
     log_t = _seg_exclusive(torch.log1p(-alpha), seg_start)
     frozen = torch.exp(log_t) * (1.0 - alpha) < T_EPS
     alpha_hat = torch.where(frozen, torch.zeros_like(alpha), alpha)
@@ -224,6 +285,41 @@ def blend_tiles_ref_bwd(
     d_depth = scatter(sum_p(w * pick(g_depth))[:, None])
     return SplatGrads(mean2d=d_mean2d, conic=d_conic, opacity=d_op[:, 0],
                       color=d_color, depth=d_depth[:, 0])
+
+
+def blended_pairs(
+    binned: BinnedSplats,
+    splats: Splats2D,
+    tile: int = TILE,
+    tiles: Optional[torch.Tensor] = None,
+) -> tuple[_Dups, torch.Tensor]:
+    """The duplicates of ``tiles`` (default: all) and the (K_sel, tile²)
+    bool of the pairs the blend blends: alpha >= 1/255, power <= 0 and
+    before the pixel freezes."""
+    d = _duplicates(binned, tile, tiles)
+    g = d.gid
+    alpha = compute_alpha(splats.mean2d[g], splats.conic[g],
+                          splats.opacity[g], d.px, d.py)
+    log_t = _seg_exclusive(torch.log1p(-alpha), d.seg_start)
+    return d, (alpha > 0) & ~(torch.exp(log_t) * (1.0 - alpha) < T_EPS)
+
+
+def last_blended(
+    binned: BinnedSplats,
+    splats: Splats2D,
+    tile: int = TILE,
+    tiles: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(S, tile²) int32 over the pixels of ``tiles`` (default: all): the
+    leading duplicates of the tile up to and including the last one the
+    pixel blends (0 if none), the training forward's ``n_contrib``."""
+    d, live = blended_pairs(binned, splats, tile, tiles)
+    rank = torch.arange(d.gid.shape[0], device=d.gid.device) - d.seg_start + 1
+    last = torch.where(live, rank[:, None], torch.zeros_like(rank[:, None]))
+    out = torch.zeros((d.tiles.shape[0], tile * tile), dtype=torch.int64,
+                      device=d.gid.device)
+    out.scatter_reduce_(0, d.seg[:, None].expand_as(last), last, "amax")
+    return out.to(torch.int32)
 
 
 def ambiguous_pixels(

@@ -9,7 +9,9 @@ or past ``budget`` are dropped; slots no Gaussian writes hold
 
 A CUDA tensor goes through the kernel, or the call raises; a CPU tensor
 goes through ``duplicate_with_keys_plain``, a ``repeat_interleave``
-expansion of the same map.  ``launches`` counts kernel launches only.
+expansion of the same map.  The kernel writes every slot below the
+budget, the sentinel ones too, so its buffers are allocated unfilled.
+``launches`` counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -25,12 +27,6 @@ def depth_bits(depth: torch.Tensor) -> torch.Tensor:
     """int64 holding the float32 bit pattern of ``depth`` (order-preserving
     for positive depths)."""
     return depth.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-
-
-def _empty_buffers(n: int, n_tiles: int, budget: int, device):
-    keys = torch.full((budget,), n_tiles << 32, dtype=torch.int64, device=device)
-    gids = torch.full((budget,), n, dtype=torch.int32, device=device)
-    return keys, gids
 
 
 def duplicate_with_keys(
@@ -61,13 +57,15 @@ def duplicate_with_keys_kernel(
     check_tensor(tile_min, "tile_min", torch.int32, (n, 2))
     check_tensor(tile_max, "tile_max", torch.int32, (n, 2))
     check_tensor(depth, "depth", torch.float32, (n,))
-    keys, gids = _empty_buffers(n, n_tiles, budget, tiles_touched.device)
+    dev = tiles_touched.device
+    keys = torch.empty((budget,), dtype=torch.int64, device=dev)
+    gids = torch.empty((budget,), dtype=torch.int32, device=dev)
     lib = _build.load_library()
-    with torch.cuda.device(tiles_touched.device):
+    with torch.cuda.device(dev):
         err = lib.duplicate_with_keys(
             n, tiles_touched.data_ptr(), starts.data_ptr(),
             tile_min.data_ptr(), tile_max.data_ptr(), depth.data_ptr(),
-            tiles_x, budget, keys.data_ptr(), gids.data_ptr(),
+            tiles_x, n_tiles, budget, keys.data_ptr(), gids.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "duplicate_with_keys")
@@ -83,7 +81,8 @@ def duplicate_with_keys_plain(
     CUDA tensor wait for the device once)."""
     n = tiles_touched.shape[0]
     dev = tiles_touched.device
-    keys, gids = _empty_buffers(n, n_tiles, budget, dev)
+    keys = torch.full((budget,), n_tiles << 32, dtype=torch.int64, device=dev)
+    gids = torch.full((budget,), n, dtype=torch.int32, device=dev)
     gid = torch.repeat_interleave(
         torch.arange(n, device=dev), tiles_touched.to(torch.int64)
     )[:budget]

@@ -9,9 +9,12 @@ It imports ``autovfx_tpu_torch`` from the directory this script lives
 in (never JAX, never ``autovfx_tpu``) and
 
 1. checks the machine (a CUDA device, its name and power limit, the
-   toolchain) and builds the package's CUDA kernels from ``csrc/``;
+   toolchain), builds the package's CUDA kernels from ``csrc/`` and
+   prints each kernel's registers, spills and blocks per SM from the
+   build's ``ptxas`` report;
 2. holds each kernel against its plain PyTorch version on a 20k-splat
-   garden-like scene at 128×96, at tile 16 and tile 32;
+   garden-like scene at 128×96, at tile 16 and tile 32, and kernel 2
+   also at its edge cases (``DUPLICATE_CASES``);
 3. renders the novel-view operating point: 1M splats written to and read
    back from a PLY file, the 8-camera ring at 1296×840, tile 32, with a
    duplicate budget sized from the views; checks the frames, that every
@@ -49,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -151,6 +155,15 @@ KERNELS = {
         "version is autograd of the preprocess",
     ),
 }
+# threads and dynamic shared memory of each kernel's launch, for its
+# blocks per SM (the preprocess backward's at SH degree 3: 15 rest
+# coefficients, 70 floats per splat)
+LAUNCH_SHAPE = {"preprocess_kernel": (256, 0), "duplicate_kernel": (256, 0),
+                "blend_kernel": (256, 0), "blend_bwd_kernel": (256, 0),
+                "preprocess_bwd_kernel": (128, 128 * 70 * 4)}
+# an H100 SM: registers, shared memory (of it 1 KB reserved per block),
+# threads and blocks
+SM_REGISTERS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 233472, 2048, 32
 # the path each kernel's top-level numbers come from (both where it runs
 # on both: the JSON line's "paths")
 MAIN_PATH = {"preprocess": "novel_view", "duplicate_with_keys": "novel_view",
@@ -207,11 +220,12 @@ def preprocess_work(n: int, k_rest: int) -> tuple[float, float, float]:
     return n * (read + write) + 84, n * PREPROCESS_FLOPS, 0.0
 
 
-def duplicate_work(n: int, n_live: int, n_dups: int) -> tuple[float, float,
+def duplicate_work(n: int, n_live: int, budget: int) -> tuple[float, float,
                                                               float]:
     """Kernel 2: every slot's tile count, a live slot's offset, rect and
-    depth, and an int64 key and an int32 gid per duplicate."""
-    return 4 * n + (8 + 8 + 8 + 4) * n_live + 12 * n_dups, 0.0, 0.0
+    depth, and an int64 key and an int32 gid for every slot of the
+    budget: the kernel writes the sentinel slots too."""
+    return 4 * n + (8 + 8 + 8 + 4) * n_live + 12 * budget, 0.0, 0.0
 
 
 def preprocess_bwd_work(n: int, k_rest: int) -> tuple[float, float, float]:
@@ -263,18 +277,12 @@ def blended_pairs(P, binned, splats, width: int, height: int,
     """The (pixel, duplicate) pairs the blend blends: power <= 0, alpha >=
     1/255 and before the pixel freezes, by the plain blend's own steps
     (``blend_ref``) over batches of tiles, pixels inside the image."""
-    ref = P.ops.blend_ref
     n_tiles = binned.tile_range.shape[0]
     total = 0
     for i in range(0, n_tiles, PLAIN_TILE_BATCH):
         tiles = torch.arange(i, min(i + PLAIN_TILE_BATCH, n_tiles),
                              device=binned.gid.device)
-        d = ref._duplicates(binned, tile, tiles)
-        g = d.gid
-        alpha = ref.compute_alpha(splats.mean2d[g], splats.conic[g],
-                                  splats.opacity[g], d.px, d.py)
-        log_t = ref._seg_exclusive(torch.log1p(-alpha), d.seg_start)
-        live = (alpha > 0) & ~(torch.exp(log_t) * (1.0 - alpha) < ref.T_EPS)
+        d, live = P.ops.blend_ref.blended_pairs(binned, splats, tile, tiles)
         live &= (d.px < width) & (d.py < height)
         total += int(live.sum())
     return total
@@ -285,6 +293,56 @@ def pair_counts(P, binned, splats, n_contrib, width, height, tile) -> dict:
     counts = contrib_counts(n_contrib, tile)
     counts["blended"] = blended_pairs(P, binned, splats, width, height, tile)
     return counts
+
+
+def kernel_name(mangled: str) -> str:
+    """``blend_kernel<2,1>`` from a kernel's mangled name."""
+    m = re.search(r"(preprocess_bwd_kernel|preprocess_kernel|duplicate_kernel"
+                  r"|blend_bwd_kernel|blend_kernel)(I((?:L[ib]\d+E)+)E)?",
+                  mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(3) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, static shared bytes, spill store bytes) of each
+    entry function in an ``nvcc -Xptxas=-v`` report."""
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = kernel_name(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)),
+                         int(smem.group(1)) if smem else 0, spill))
+            name = None
+    return rows
+
+
+def blocks_per_sm(registers: int, smem: int, threads: int) -> int:
+    """Blocks of ``threads`` threads that fit on one SM at ``registers``
+    a thread (allocated 256 to a warp at a time) and ``smem`` bytes of
+    shared memory a block."""
+    warps = (threads + 31) // 32
+    per_warp = (registers * 32 + 255) // 256 * 256
+    by_regs = SM_REGISTERS // per_warp // warps if registers else SM_BLOCKS
+    by_smem = SM_SMEM // (smem + 1024) if smem else SM_BLOCKS
+    return min(by_regs, by_smem, SM_THREADS // threads, SM_BLOCKS)
+
+
+def print_ptxas(log: str) -> None:
+    for name, regs, smem, spill in ptxas_kernels(log):
+        threads, dyn = LAUNCH_SHAPE[name.split("<")[0]]
+        print(f"  {name}: {regs} registers, {spill} B spilled, {smem + dyn} B "
+              f"shared, {threads} threads: "
+              f"{blocks_per_sm(regs, smem + dyn, threads)} blocks per SM")
 
 
 def sm_clock_mhz() -> float:
@@ -474,12 +532,60 @@ def check_preprocess(got, want, what: str) -> float:
 
 
 def check_duplicates(P, splats, tiles_x, n_tiles, budget, what) -> float:
-    """Kernel 2 against its repeat_interleave version, bit for bit, raw
-    and sorted."""
+    """Kernel 2 against its repeat_interleave version on a view's
+    splats."""
     counts = splats.tiles_touched
     starts = torch.cumsum(counts, 0) - counts
-    args = (counts, starts, splats.tile_min, splats.tile_max, splats.depth,
-            tiles_x, n_tiles, budget)
+    return check_duplicate_args(
+        P, (counts, starts, splats.tile_min, splats.tile_max, splats.depth,
+            tiles_x, n_tiles, budget), what)
+
+
+# kernel 2's edge cases (``duplicate_case``)
+DUPLICATE_CASES = ("zero counts and a sentinel tail",
+                   "one Gaussian over every tile", "a budget cut mid-rect",
+                   "every Gaussian culled", "no Gaussians")
+
+
+def duplicate_case(name: str, device) -> tuple:
+    """The ``duplicate_with_keys`` arguments of one of ``DUPLICATE_CASES``
+    on a 41 x 27 tile grid (numpy, seeded): runs of culled Gaussians
+    (with rects that must not be read) across the kernel's blocks of
+    256, one Gaussian whose rect is the whole grid, the budget ending in
+    the middle of that rect, all culled, and none."""
+    rng = np.random.default_rng(DUPLICATE_CASES.index(name))
+    tiles_x, tiles_y = 41, 27
+    n = 0 if name == "no Gaussians" else 1000
+    x0 = rng.integers(0, tiles_x, n)
+    y0 = rng.integers(0, tiles_y, n)
+    x1 = np.minimum(x0 + rng.integers(1, 5, n), tiles_x)
+    y1 = np.minimum(y0 + rng.integers(1, 4, n), tiles_y)
+    live = rng.random(n) > 0.4
+    live[250:262] = live[500:530] = False  # across blocks' edges
+    big = 300  # the Gaussian over every tile
+    if n:
+        x0[big], y0[big], x1[big], y1[big] = 0, 0, tiles_x, tiles_y
+        live[big] = True
+    if name == "every Gaussian culled":
+        live[:] = False
+    area = np.where(live, (x1 - x0) * (y1 - y0), 0)
+    dev = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt, device=device)
+    counts = dev(area, torch.int32)
+    starts = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    total = int(area.sum())
+    budget = {"zero counts and a sentinel tail": total + 777,
+              "one Gaussian over every tile": total,
+              "a budget cut mid-rect": int(area[:big].sum()) + 500,
+              }.get(name, 3000)
+    return (counts, starts, dev(np.stack([x0, y0], 1), torch.int32),
+            dev(np.stack([x1, y1], 1), torch.int32),
+            dev(rng.uniform(0.3, 9.0, n), torch.float32), tiles_x,
+            tiles_x * tiles_y, budget)
+
+
+def check_duplicate_args(P, args, what) -> float:
+    """Kernel 2 against its repeat_interleave version on ``args``, bit for
+    bit, raw and sorted."""
     k_keys, k_gids = P.ops.fill_cuda.duplicate_with_keys_kernel(*args)
     p_keys, p_gids = P.ops.fill_cuda.duplicate_with_keys_plain(*args)
     check(torch.equal(k_keys, p_keys) and torch.equal(k_gids, p_gids),
@@ -488,6 +594,8 @@ def check_duplicates(P, splats, tiles_x, n_tiles, budget, what) -> float:
     ps, pg = P.ops.binning.sort_duplicates(p_keys, p_gids)
     check(torch.equal(ks >> 32, ps >> 32) and torch.equal(kg, pg),
           f"{what}: sorted (tile, gid) differ")
+    if k_keys.numel() == 0:
+        return 0.0
     return float((k_keys - p_keys).abs().max().item())
 
 
@@ -545,6 +653,11 @@ def small_checks(P) -> None:
         sync()
         print(f"check {what}: preprocess max err {e1:.3g}, duplicates "
               f"bit-equal ({e2:.0f}), blend max color err {e3:.3g}: ok")
+    for name in DUPLICATE_CASES:
+        check_duplicate_args(P, duplicate_case(name, DEVICE), name)
+    sync()
+    print(f"check duplicates at {len(DUPLICATE_CASES)} edge cases "
+          f"({', '.join(DUPLICATE_CASES)}): bit-equal: ok")
 
 
 # ---- operating point ---------------------------------------------------------
@@ -743,8 +856,7 @@ def operating_point(P, card: str) -> list[dict]:
     pairs = pair_counts(P, b, s, st.n_contrib, WIDTH, HEIGHT, TILE)
     work = {
         "preprocess": preprocess_work(g.capacity, g.sh_rest.shape[1]),
-        "duplicate_with_keys": duplicate_work(g.capacity, n_live,
-                                              int(b.total_dups)),
+        "duplicate_with_keys": duplicate_work(g.capacity, n_live, budget),
         "blend_fwd": blend_work(pairs, n_live),
     }
     perf = {k: {"novel_view": timed_bound(ms[k][0], work[k], clock[k])}
@@ -1142,7 +1254,7 @@ def train_timing(P, card, state, cams, images, cfg) -> tuple[dict, dict]:
     work = {
         "preprocess": preprocess_work(g.capacity, k_rest),
         "duplicate_with_keys": duplicate_work(g.capacity, n_live,
-                                              int(b.total_dups)),
+                                              cfg.raster.dup_budget),
         "blend_fwd": blend_work(pairs, n_live, train=True),
         "blend_bwd": blend_work(pairs, n_live, backward=True),
         "preprocess_bwd": preprocess_bwd_work(g.capacity, k_rest),
@@ -1175,9 +1287,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
-    for line in (lib.parent / "nvcc.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  " + line.strip())
+    print_ptxas((lib.parent / "nvcc.log").read_text())
     _build.load_library()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from autovfx_tpu.core import cameras as JC
 from autovfx_tpu.ops import binning as JB
 from autovfx_tpu.ops import projection as JPr
@@ -113,6 +114,61 @@ def test_duplicate_plain_matches_loop():
     )
     assert k.tolist() == keys[:budget]
     assert gi.tolist() == gids[:budget]
+
+
+def expand_by_search(counts, starts, tile_min, tile_max, depth, tiles_x: int,
+                     n_tiles: int, budget: int, block: int):
+    """Kernel 2's load-balanced expansion (``csrc/duplicate.cu``), written
+    plainly: each block of ``block`` consecutive Gaussians owns the slots
+    from its first start to its last end (cut at the budget), and finds
+    each slot's Gaussian as the last of its starts <= the slot; the slots
+    from min(total, budget) on hold the sentinel."""
+    n = counts.shape[0]
+    keys = torch.empty(budget, dtype=torch.int64)
+    gids = torch.empty(budget, dtype=torch.int32)
+    total = int(starts[-1] + counts[-1]) if n else 0
+    keys[min(total, budget):] = n_tiles << 32
+    gids[min(total, budget):] = n
+    bits = fill_cuda.depth_bits(depth)
+    for first in range(0, n, block):
+        last = min(first + block, n) - 1
+        lo = int(starts[first])
+        hi = min(int(starts[last] + counts[last]), budget)
+        if lo >= hi:
+            continue
+        slots = torch.arange(lo, hi)
+        i = first + torch.searchsorted(starts[first:last + 1], slots,
+                                       right=True) - 1
+        rank = slots - starts[i]
+        x0, y0 = tile_min[i, 0].long(), tile_min[i, 1].long()
+        w = tile_max[i, 0].long() - x0
+        dy = torch.div(rank, w, rounding_mode="floor")
+        keys[slots] = (((y0 + dy) * tiles_x + x0 + rank - dy * w) << 32) \
+            | bits[i]
+        gids[slots] = i.to(torch.int32)
+    return keys, gids
+
+
+@pytest.mark.parametrize("block", [256, 7])
+@pytest.mark.parametrize("case", cs.DUPLICATE_CASES)
+def test_load_balanced_expansion_matches_plain(case, block):
+    """The search over block starts lands on the live Gaussian of every
+    slot, past culled ones, and the sentinel fills the rest, bit for bit
+    as the ``repeat_interleave`` expansion."""
+    args = cs.duplicate_case(case, "cpu")
+    counts, starts, budget = args[0], args[1], args[-1]
+    if case == "every Gaussian culled":
+        assert int(counts.abs().max()) == 0
+    elif counts.numel():
+        assert (counts == 0).any() and int(counts.max()) == 41 * 27
+    keys, gids = expand_by_search(*args, block=block)
+    want_keys, want_gids = fill_cuda.duplicate_with_keys_plain(*args)
+    assert torch.equal(keys, want_keys) and torch.equal(gids, want_gids)
+    total = int(counts.sum())
+    if case == "a budget cut mid-rect":
+        assert budget < total and int(gids[-1]) == 300  # inside its rect
+    if case == "zero counts and a sentinel tail":
+        assert budget > total and int(gids[-1]) == counts.shape[0]
 
 
 def test_budget_helpers(jax_scene):

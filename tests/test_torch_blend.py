@@ -4,7 +4,10 @@ The port's ``blend_ref`` (what kernel 3 is held against on the card) is
 compared, as images, with JAX ``blend_ref.blend_tiles_ref`` and with the
 Pallas ``_blend_fwd_call`` in interpret mode ("log" and "linear"
 algorithms): color PSNR > 90 dB, alpha max abs < 1e-4.  Both sides see
-the same JAX ``Splats2D``, carried into the port.
+the same JAX ``Splats2D``, carried into the port.  The kernels' warp-patch
+skip (``blend_ref.patch_mask_plain``) must drop no blended pair and
+leave the plain blend's alphas, and so its images, bit for bit as they
+are.
 """
 import numpy as np
 import jax.experimental.pallas as pl
@@ -131,3 +134,69 @@ def test_tile_subset_equals_full_frame():
     back = blend_ref.split_tiles(img, 4, 3, tile=32)
     inside = blend_ref.split_tiles(torch.ones(H, W), 4, 3, tile=32) > 0
     torch.testing.assert_close(back[inside], full.color[inside])
+
+
+def skip_scene(tile, scene):
+    """The port's splats and binning of the golden view: as they are,
+    saturated (opacity logit 5: the 0.99 clamp and the freeze bind), or
+    thin (conics of 40 across and 0.04 along, alternately one pixel row
+    tall and one column wide)."""
+    import jax.numpy as jnp
+
+    g, cam = golden_scene()
+    if scene == "saturated":
+        g = g.replace(opacity_logit=jnp.full_like(g.opacity_logit, 5.0))
+    _, _, ps, pb = both(g, cam, tile)
+    if scene == "thin":
+        n = ps.depth.shape[0]
+        row = torch.arange(n) % 2 == 0
+        wide, thin = torch.tensor(0.04), torch.tensor(40.0)
+        ps = ps._replace(conic=torch.stack([
+            torch.where(row, wide, thin), torch.zeros(n),
+            torch.where(row, thin, wide)], dim=1))
+    return ps, pb
+
+
+@pytest.mark.parametrize("scene", ["garden", "saturated", "thin"])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_patch_skip_drops_no_blended_pair(tile, scene):
+    """No blended pair lies in a cleared patch, and clearing the pairs
+    there leaves every alpha the plain blend computes bit for bit as it
+    is: the blend, a function of those alphas, is then unchanged."""
+    ps, pb = skip_scene(tile, scene)
+    n_tiles = pb.tile_range.shape[0]
+    blended = cleared = pairs = 0
+    for i in range(0, n_tiles, 4):
+        tiles = torch.arange(i, min(i + 4, n_tiles))
+        d, live = blend_ref.blended_pairs(pb, ps, tile, tiles)
+        kept = blend_ref._patch_kept(d, ps, pb, tile)
+        assert not bool((live & ~kept).any()), f"tiles {i}.."
+        g = d.gid
+        alpha = blend_ref.compute_alpha(ps.mean2d[g], ps.conic[g],
+                                        ps.opacity[g], d.px, d.py)
+        skipped = torch.where(kept, alpha, torch.zeros_like(alpha))
+        assert torch.equal(alpha, skipped), f"tiles {i}.."
+        blended += int(live.sum())
+        cleared += int((~kept).sum())
+        pairs += kept.numel()
+    assert blended > 100_000
+    assert cleared > 0.5 * pairs  # the skip has work to save
+
+
+def test_patch_mask_plain_edge_cases():
+    """Every bit where an input is not finite or the conic is not
+    positive definite; none where the opacity cannot reach 1/255; a
+    point-like splat only in its own patch."""
+    xy = torch.tensor([[40.0, 12.0]] * 5)
+    conic = torch.tensor([[1.0, 0.0, 1.0], [float("nan"), 0.0, 1.0],
+                          [1.0, 2.0, 1.0], [1.0, 0.0, 1.0], [50.0, 0.0, 50.0]])
+    op = torch.tensor([0.5, 0.5, 0.5, 1.0 / 300.0, 0.9])
+    o = torch.tensor([32] * 5)
+    m = blend_ref.patch_mask_plain(xy, conic, op, o, torch.zeros(5), 32)
+    assert m[1].all() and m[2].all() and not m[3].any()
+    # at (8, 12) of the tile: patch 0 spans x 0-15, y 0-7; patch 2 y 8-15
+    assert m[4].tolist() == [False, False, True, False, False, False,
+                             False, False]
+    assert m[0, 2] and m[0].sum() < 8
+    assert blend_ref.pixel_patch(32)[12 * 32 + 8] == 2
+    assert blend_ref.pixel_patch(16)[7 * 16 + 15] == 3

@@ -57,8 +57,38 @@ def test_preprocess_bytes():
 
 def test_duplicate_bytes():
     # every slot's tile count (4), a live slot's int64 offset, int32 rect
-    # and f32 depth (28), and an int64 key and int32 gid per duplicate
-    assert cs.duplicate_work(10, 4, 7) == (40 + 4 * 28 + 7 * 12, 0.0, 0.0)
+    # and f32 depth (28), and an int64 key and int32 gid for every slot
+    # of the budget: the kernel writes the sentinel slots too
+    n, n_live, budget = 10, 4, 7
+    assert cs.duplicate_work(n, n_live, budget) == (
+        40 + 4 * 28 + 7 * 12, 0.0, 0.0)
+    assert cs.duplicate_work(n, n_live, 4096)[0] == 40 + 4 * 28 + 4096 * 12
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112blend_kernelILi2ELb1EEEvPKiS2_PKfS4_S4_S4_S4_iiiiPfS5_S5_S5_Pi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112blend_kernelILi2ELb1EEEvPKiS2_PKfS4_S4_S4_S4_iiiiPfS5_S5_S5_Pi
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 11264 bytes smem, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116duplicate_kernelEiPKiPKlS1_S1_PKfiilPlPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116duplicate_kernelEiPKiPKlS1_S1_PKfiilPlPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 1 barriers, 5120 bytes smem, 440 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_and_blocks_per_sm():
+    assert cs.ptxas_kernels(PTXAS_LOG) == [
+        ("blend_kernel<2,1>", 80, 11264, 8), ("duplicate_kernel", 26, 5120, 0)]
+    # registers go 256 to a warp: 80 a thread is 2560 a warp, 25 warps of
+    # 65,536, 3 blocks of 8; 64 a thread fits 4, 65 only 3
+    assert cs.blocks_per_sm(80, 11264, 256) == 3
+    assert cs.blocks_per_sm(64, 0, 256) == 4
+    assert cs.blocks_per_sm(65, 0, 256) == 3
+    # 2048 threads an SM, and shared memory: 35,840 B a block plus 1 KB
+    assert cs.blocks_per_sm(26, 5120, 256) == 8
+    assert cs.blocks_per_sm(32, 35840, 128) == 6
 
 
 def test_contrib_counts_of_two_tiles():

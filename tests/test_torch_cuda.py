@@ -2,7 +2,10 @@
 
 Covers what ``chip_smoke.py``'s main path does not launch: the kernel
 options (override color, SH degree, scaling modifier, inactive splats),
-empty and fully culled views, an overflowing budget, ``render``'s normal
+empty and fully culled views, an overflowing budget, kernel 2's edge
+cases, kernel 3's two entries on thin and saturated splats (the
+training entry's images bit-equal to the novel-view entry's, its
+n_contrib the plain blend's last blended duplicate), ``render``'s normal
 pass, and the wrappers' refusals; and for the training path, the
 backward kernels under those options, the differentiable ``rasterize``
 and one ``train_step`` against the CPU path.  The tolerances are
@@ -26,7 +29,7 @@ import chip_smoke as cs
 from autovfx_tpu_torch.core.cameras import look_at_camera
 from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS
 from autovfx_tpu_torch.ops import (
-    binning, blend_cuda, fill_cuda, preprocess_cuda, projection,
+    binning, blend_cuda, blend_ref, fill_cuda, preprocess_cuda, projection,
 )
 from autovfx_tpu_torch.utils.synthetic import make_garden_like, make_gaussians
 
@@ -154,6 +157,54 @@ def test_overflow_is_flagged_and_finite(scene):
     cs.check_duplicates(P, s, tx, tx * ty, need // 3, "overflow")
 
 
+@pytest.mark.parametrize("case", cs.DUPLICATE_CASES)
+def test_duplicates_at_edge_cases(dev, case):
+    cs.check_duplicate_args(P, cs.duplicate_case(case, dev), case)
+
+
+def thin_conics(n: int, device) -> torch.Tensor:
+    """Conics of splats one pixel row tall (even ids) or one column wide
+    (odd ids): 40 across them, alpha >= 1/255 within ~0.5 px, and 0.04
+    along."""
+    row = torch.arange(n, device=device) % 2 == 0
+    wide, thin = 0.04, 40.0  # sigma 5 px along, 0.16 px across
+    return torch.stack([torch.where(row, wide, thin),
+                        torch.zeros(n, device=device),
+                        torch.where(row, thin, wide)], dim=1)
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("kind", ["thin", "saturated"])
+def test_blend_entries_match_plain(scene, tile, kind):
+    """Both kernel-3 entries against the plain blend; the training
+    entry's images bit-equal to the novel-view entry's, its final T the
+    complement of alpha and its n_contrib the plain blend's last blended
+    duplicate wherever the two cannot decide a duplicate otherwise."""
+    g, cam = scene
+    if kind == "saturated":
+        g = with_fields(g, opacity_logit=torch.full_like(
+            g.opacity_logit, cs.SATURATED_LOGIT))
+    s = preprocess_cuda.preprocess_kernel(g, cam, tile=tile)
+    if kind == "thin":
+        s = s._replace(conic=thin_conics(g.capacity, g.xyz.device))
+    budget = binning.round_budget(int(binning.required_budget(s)))
+    b = binning.bin_splats(s, W, H, budget, tile=tile)
+    images = blend_cuda.blend_kernel(b, s, W, H, tile)
+    tiles = torch.arange(b.tile_range.shape[0], device=g.xyz.device)
+    cs.check_blend(P, b, s, images, tiles, W, H, tile, f"{kind} tile {tile}")
+    train_images, state = blend_cuda.blend_train_kernel(b, s, W, H, tile)
+    for x, y in zip(train_images, images):
+        assert torch.equal(x, y)
+    assert torch.equal(1.0 - state.final_t, images[2])
+    tx, ty = b.num_tiles_x, b.num_tiles_y
+    image = lambda x: blend_ref.assemble_image(x, tx, ty, W, H, tile)
+    want = image(blend_ref.last_blended(b, s, tile))
+    marked = image(blend_ref.ambiguous_pixels(b, s, tile))
+    assert float(marked.double().mean()) <= cs.MAX_AMBIGUOUS_SHARE
+    assert int((want > 0).sum()) > W * H // 2
+    assert not bool(((state.n_contrib != want) & ~marked).any())
+
+
 def test_wrappers_refuse_what_kernels_do_not_take(scene):
     g, cam = scene
     cam_cpu = look_at_camera([2.6, 0.4, 1.2], [0, 0, 0.2], [0, 0, 1],
@@ -263,13 +314,7 @@ def test_blend_bwd_thin_splats(scene, tile):
     patches along one side only."""
     g, cam = scene
     s = preprocess_cuda.preprocess_kernel(g, cam, tile=tile)
-    n = g.capacity
-    row = torch.arange(n, device=g.xyz.device) % 2 == 0
-    wide, thin = 0.04, 40.0  # sigma 5 px along, 0.16 px across
-    conic = torch.stack([torch.where(row, wide, thin),
-                         torch.zeros(n, device=g.xyz.device),
-                         torch.where(row, thin, wide)], dim=1)
-    s = s._replace(conic=conic)
+    s = s._replace(conic=thin_conics(g.capacity, g.xyz.device))
     budget = binning.round_budget(int(binning.required_budget(s)))
     b = binning.bin_splats(s, W, H, budget, tile=tile)
     cs.check_blend_bwd_binned(P, b, s, W, H, tile, np.random.default_rng(12),
