@@ -2,7 +2,8 @@
 NVIDIA H100.
 
 The JAX package stays the reference; this package mirrors its module
-names (``core/``, ``ops/``, ``utils/``) and imports neither JAX nor
+names (``core/``, ``ops/``, ``render/``, ``physics/``, ``train/``,
+``utils/``) and imports neither JAX nor
 ``autovfx_tpu``.  Tensors on a CUDA device go through the hand-written
 kernels in ``csrc/`` (built with ``nvcc`` at first use, see
 ``ops/_build.py``); tensors on the CPU go through their plain PyTorch
@@ -10,10 +11,15 @@ versions.
 
 - ``autovfx_tpu_torch.core``   Gaussians, cameras, SH, quaternions, PLY IO.
 - ``autovfx_tpu_torch.ops``    preprocess, binning and blend, their kernel
-  wrappers and backwards; ``rasterize`` / ``render``; kNN.
+  wrappers and backwards; ``rasterize`` / ``render`` / the merged
+  ``rasterize_multi``; kNN; ray-mesh casting.
+- ``autovfx_tpu_torch.render`` the edited frame: envmap IBL, object
+  surfels, hull shadows, the composite and the clip loop.
+- ``autovfx_tpu_torch.physics`` convex hulls, the scene-mesh grid and
+  the rigid-body solver that drops objects into a scene.
 - ``autovfx_tpu_torch.train``  losses, densification, the trainer
-  (``train_step``, ``densify_step``, ``reset_opacity_step``, ``train``)
-  and ``.npz`` checkpoints.
+  (``train_step``, ``densify_step``, ``reset_opacity_step``, ``train``),
+  ``.npz`` checkpoints and init points cast onto a scene mesh.
 - ``autovfx_tpu_torch.utils``  seeded synthetic scenes.
 - ``autovfx_tpu_torch.convert`` carries arrays of the JAX package's
   parameters and training state into this package's tensors.
@@ -27,8 +33,9 @@ from autovfx_tpu_torch.ops.rasterize import (  # noqa: F401
     RasterConfig,
     RenderOutput,
     rasterize,
+    rasterize_multi,
     render,
 )
 
 __all__ = ["Camera", "Gaussians", "RasterConfig", "RenderOutput",
-           "rasterize", "render"]
+           "rasterize", "rasterize_multi", "render"]

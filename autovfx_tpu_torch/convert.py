@@ -3,7 +3,8 @@
 Takes plain arrays (``np.asarray`` of each field of another package's
 ``Gaussians`` or ``Camera``), as a dict or as keyword arguments, and
 returns this package's dataclasses on a chosen device; ``train_state``
-takes a whole training state in the arrays of a checkpoint.  Only
+takes a whole training state in the arrays of a checkpoint and
+``clip_inputs`` an edited clip's inputs.  Only
 arrays cross the boundary, so nothing here imports another framework.
 """
 from __future__ import annotations
@@ -91,3 +92,26 @@ def train_state(arrays: Mapping, *, device=devices.DEFAULT):
         ),
         step=int(arrays["step"]),
     )
+
+
+def clip_inputs(arrays: Mapping, bg: Gaussians, cams: Camera, *,
+                device=devices.DEFAULT):
+    """A ``render.clip.ClipInputs`` from arrays named like its fields
+    (``surf_*``, ``traj_*``, ``hull_planes``, ``hull_mask``, ``env``,
+    ``env_sh``, ``light_dirs``, ``light_weights`` and, optionally,
+    ``env_ggx``) and the background and stacked cameras already carried
+    over.  ``surf_body`` becomes int64 and ``hull_mask`` bool."""
+    device = devices.resolve(device)
+    from autovfx_tpu_torch.render.clip import ClipInputs
+
+    ints = {"surf_body": torch.int64, "hull_mask": torch.bool}
+    names = [f.name for f in dataclasses.fields(ClipInputs)
+             if f.name not in ("bg", "cams")]
+    out = {}
+    for name in names:
+        if arrays.get(name) is None:
+            continue
+        dt = ints.get(name, torch.float32)
+        out[name] = torch.tensor(np.asarray(arrays[name]), device=device).to(dt)
+    return ClipInputs(bg=bg, cams=cams, **out)
+

@@ -1,6 +1,7 @@
 """Pinhole camera in the OpenCV/COLMAP convention (+z forward).
 
-Counterpart of ``autovfx_tpu/core/cameras.py:29-195``.  ``R``/``t`` are
+Counterpart of ``autovfx_tpu/core/cameras.py:29-195`` (trajectory IO
+is not ported).  ``R``/``t`` are
 the world-to-camera rotation and translation (``p_cam = R @ p + t``);
 the intrinsics are float32 tensors (0-d, or (B,) for a stacked batch)
 and the image size is plain Python ints.
@@ -31,6 +32,49 @@ class Camera:
     def center(self) -> torch.Tensor:
         """Camera position in world space, ``-R^T t``."""
         return -torch.einsum("...ji,...j->...i", self.R, self.t)
+
+    @property
+    def c2w(self) -> torch.Tensor:
+        """(..., 4, 4) camera-to-world, OpenCV convention."""
+        top = torch.cat([self.R.transpose(-1, -2), self.center[..., :, None]],
+                        dim=-1)
+        return torch.cat([top, self._bottom_row(top)], dim=-2)
+
+    @property
+    def w2c(self) -> torch.Tensor:
+        top = torch.cat([self.R, self.t[..., :, None]], dim=-1)
+        return torch.cat([top, self._bottom_row(top)], dim=-2)
+
+    @staticmethod
+    def _bottom_row(top: torch.Tensor) -> torch.Tensor:
+        row = top.new_tensor([0.0, 0.0, 0.0, 1.0])
+        return row.expand(*top.shape[:-2], 1, 4)
+
+    @property
+    def K(self) -> torch.Tensor:
+        z, o = torch.zeros_like(self.fx), torch.ones_like(self.fx)
+        return torch.stack([
+            torch.stack([self.fx, z, self.cx], -1),
+            torch.stack([z, self.fy, self.cy], -1),
+            torch.stack([z, z, o], -1),
+        ], dim=-2)
+
+    def project(self, points_world: torch.Tensor):
+        """World points (..., 3) -> pixel coords (..., 2) and view depth."""
+        p = torch.einsum("ij,...j->...i", self.R, points_world) + self.t
+        z = p[..., 2]
+        u = self.fx * p[..., 0] / z + self.cx
+        v = self.fy * p[..., 1] / z + self.cy
+        return torch.stack([u, v], dim=-1), z
+
+    def resized(self, factor: float) -> "Camera":
+        """Downscale by ``factor`` (intrinsics divided, size rounded)."""
+        return dataclasses.replace(
+            self, fx=self.fx / factor, fy=self.fy / factor,
+            cx=self.cx / factor, cy=self.cy / factor,
+            width=round(self.width / factor),
+            height=round(self.height / factor),
+        )
 
     @property
     def tan_half_fovx(self) -> torch.Tensor:

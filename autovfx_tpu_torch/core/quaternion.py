@@ -75,3 +75,76 @@ def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
     idx = best[..., None, None].expand(*best.shape, 1, 4)
     q = torch.take_along_dim(cand, idx, dim=-2)[..., 0, :]
     return quat_normalize(q)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by quaternions q (..., 4)."""
+    qw = q[..., 0:1]
+    qv = q[..., 1:4]
+    uv = _cross(qv, v)
+    uuv = _cross(qv, uv)
+    return v + 2.0 * (qw * uv + uuv)
+
+
+def helper_axis(n: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Per row of unit vectors ``n`` (..., 3): +z where |n_z| <
+    ``threshold``, else +x (a tangent-frame helper), made on n's device
+    with no copy from the host."""
+    c = (torch.abs(n[..., 2]) < threshold).to(n.dtype)
+    return torch.stack([1.0 - c, torch.zeros_like(c), c], dim=-1)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) unit axis, (...) angle in radians -> (..., 4) wxyz."""
+    half = angle[..., None] * 0.5
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt: float) -> torch.Tensor:
+    """Integrate orientation by world-frame angular velocity ``omega``:
+    q' = normalize(q + dt/2 · (0, omega) ⊗ q)."""
+    omega_q = torch.cat([torch.zeros_like(omega[..., :1]), omega], dim=-1)
+    dq = 0.5 * quat_multiply(omega_q, q)
+    return quat_normalize(q + dt * dq)
+
+
+def euler_to_rotmat(rx, ry, rz) -> torch.Tensor:
+    """XYZ-order Euler angles (radians, Blender's default) -> (3, 3)
+    float32 rotation ``Rz @ Ry @ Rx``."""
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32)
+    rx, ry, rz = f32(rx), f32(ry), f32(rz)
+    cx, sx = torch.cos(rx), torch.sin(rx)
+    cy, sy = torch.cos(ry), torch.sin(ry)
+    cz, sz = torch.cos(rz), torch.sin(rz)
+    o, z = torch.ones_like(cx), torch.zeros_like(cx)
+    rot_x = torch.stack([torch.stack([o, z, z]), torch.stack([z, cx, -sx]),
+                         torch.stack([z, sx, cx])])
+    rot_y = torch.stack([torch.stack([cy, z, sy]), torch.stack([z, o, z]),
+                         torch.stack([-sy, z, cy])])
+    rot_z = torch.stack([torch.stack([cz, -sz, z]), torch.stack([sz, cz, z]),
+                         torch.stack([z, z, o])])
+    return rot_z @ rot_y @ rot_x

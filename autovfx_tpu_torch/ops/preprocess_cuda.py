@@ -59,16 +59,26 @@ def preprocess(
     sh_degree: Optional[int] = None,
     tile: int = projection.TILE,
     mean2d_offset: Optional[torch.Tensor] = None,
+    out: Optional[Splats2D] = None,
 ) -> Splats2D:
-    """Project all Gaussians to screen space (see ``projection.preprocess``)."""
+    """Project all Gaussians to screen space (see ``projection.preprocess``).
+
+    ``out``, when given, is a ``Splats2D`` of the capacity's rows (row
+    slices of larger buffers, say) that receives the result, which is
+    then ``out`` itself."""
     if not g.xyz.is_cuda:
-        return projection.preprocess(
+        s = projection.preprocess(
             g, cam, scaling_modifier=scaling_modifier,
             override_color=override_color, sh_degree=sh_degree, tile=tile,
             mean2d_offset=mean2d_offset,
         )
+        if out is None:
+            return s
+        for dst, src in zip(out, s):
+            dst.copy_(src)
+        return out
     return preprocess_kernel(g, cam, scaling_modifier, override_color,
-                             sh_degree, tile, mean2d_offset)
+                             sh_degree, tile, mean2d_offset, out)
 
 
 def _degree(g: Gaussians, sh_degree: Optional[int]) -> int:
@@ -97,6 +107,7 @@ def preprocess_kernel(
     sh_degree: Optional[int] = None,
     tile: int = projection.TILE,
     mean2d_offset: Optional[torch.Tensor] = None,
+    out: Optional[Splats2D] = None,
 ) -> Splats2D:
     global launches
     n = g.capacity
@@ -113,13 +124,14 @@ def preprocess_kernel(
 
     tiles_x, tiles_y = projection.num_tiles(cam.width, cam.height, tile)
     dev = g.xyz.device
-    fe = lambda *s: torch.empty(s, dtype=f32, device=dev)
-    ie = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
-    out = Splats2D(
-        mean2d=fe(n, 2), conic=fe(n, 3), color=fe(n, 3), opacity=fe(n),
-        depth=fe(n), radius=ie(n), tile_min=ie(n, 2), tile_max=ie(n, 2),
-        tiles_touched=ie(n),
-    )
+    if out is None:
+        out = projection.empty_splats(n, dev)
+    else:  # the kernel writes contiguous rows on the Gaussians' device
+        for name, x, like in zip(Splats2D._fields, out,
+                                 projection.empty_splats(0, dev)):
+            check_tensor(x, f"out.{name}", like.dtype, (n,) + like.shape[1:])
+            if x.device != dev:
+                raise ValueError(f"out.{name} is on {x.device}, not {dev}")
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

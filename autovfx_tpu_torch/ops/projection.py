@@ -37,6 +37,15 @@ class Splats2D(NamedTuple):
     tiles_touched: torch.Tensor  # (N,) int32 covered tiles
 
 
+def empty_splats(n: int, device) -> Splats2D:
+    """An uninitialized ``Splats2D`` of ``n`` rows."""
+    fe = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
+    ie = lambda *s: torch.empty(s, dtype=torch.int32, device=device)
+    return Splats2D(mean2d=fe(n, 2), conic=fe(n, 3), color=fe(n, 3),
+                    opacity=fe(n), depth=fe(n), radius=ie(n),
+                    tile_min=ie(n, 2), tile_max=ie(n, 2), tiles_touched=ie(n))
+
+
 def num_tiles(width: int, height: int, tile: int = TILE) -> tuple[int, int]:
     return (width + tile - 1) // tile, (height + tile - 1) // tile
 

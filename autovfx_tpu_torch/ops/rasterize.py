@@ -16,21 +16,24 @@ backwards are ``csrc/preprocess_bwd.cu`` and kernel 4
 (``csrc/blend_bwd.cu``); the binning is integer work and is not
 differentiated.  Otherwise the novel-view path runs as it is.
 
-Not ported from the JAX package: ``packed_rows``, ``rasterize_rows``
-and ``rasterize_rows_multi`` (the TPU's field-major scene-rows entry
-points; a merged render over several ``Gaussians`` sets takes their
-place with the edited-frame slice).
+``rasterize_multi`` renders several ``Gaussians`` sets as one scene
+(the edited frame's background and object surfels): kernel 1 once per
+set, each writing its rows of one ``Splats2D``, then one binning and one
+blend.  It takes the place of the JAX package's ``rasterize_rows_multi``;
+``packed_rows`` and ``rasterize_rows`` (the TPU's field-major scene-rows
+entry points) are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from autovfx_tpu_torch.core.cameras import Camera
 from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS, Gaussians
 from autovfx_tpu_torch.ops import binning, blend_cuda, preprocess_cuda
+from autovfx_tpu_torch.ops.projection import Splats2D, empty_splats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +92,55 @@ def rasterize(
         splats, cam.width, cam.height, config.dup_budget, tile=config.tile
     )
     color, depth, alpha = blend(
+        binned, splats, cam.width, cam.height, config.tile
+    )
+    if bg is not None:
+        color = color + (1.0 - alpha)[..., None] * bg
+    return RenderOutput(
+        color=color, depth=depth, alpha=alpha, radii=splats.radius,
+        overflow=binned.overflow,
+    )
+
+
+def preprocess_sets(
+    sets: Sequence[Gaussians],
+    cam: Camera,
+    config: RasterConfig = RasterConfig(),
+    out: Optional[Splats2D] = None,
+) -> Splats2D:
+    """Kernel 1 on each set, in order, into consecutive rows of ``out``
+    (made here when not given): row ``i`` of set ``k`` is gid
+    ``sum(capacities before k) + i``, so equal keys sort the earlier set
+    first."""
+    n = sum(g.capacity for g in sets)
+    if out is None:
+        out = empty_splats(n, sets[0].xyz.device)
+    off = 0
+    for g in sets:
+        rows = Splats2D(*(x[off:off + g.capacity] for x in out))
+        preprocess_cuda.preprocess(
+            g, cam, scaling_modifier=config.scaling_modifier,
+            sh_degree=config.sh_degree, tile=config.tile, out=rows)
+        off += g.capacity
+    return out
+
+
+def rasterize_multi(
+    sets: Sequence[Gaussians],
+    cam: Camera,
+    bg: Optional[torch.Tensor] = None,
+    config: RasterConfig = RasterConfig(),
+) -> RenderOutput:
+    """One render of several Gaussian sets as one scene, with no copy of
+    their parameters: ``preprocess_sets``, one ``bin_splats`` and one
+    blend over the joined splats (the same image as ``rasterize`` of the
+    concatenated sets).  Not differentiable; ``radii`` are the joined
+    sets'."""
+    splats = preprocess_sets(sets, cam, config)
+    binned = binning.bin_splats(
+        splats, cam.width, cam.height, config.dup_budget, tile=config.tile
+    )
+    color, depth, alpha = blend_cuda.blend(
         binned, splats, cam.width, cam.height, config.tile
     )
     if bg is not None:

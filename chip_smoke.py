@@ -50,6 +50,7 @@ launch counts, times and bounds), the card's name and power limit as
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -79,7 +80,8 @@ PLAIN_TILE_BATCH = 16  # tiles per plain-blend call (bounds its memory)
 KERNEL_REPS = 10  # kernel launches per profiler session
 PROFILE_PAD_S = 0.5  # idle seconds at each end of a profiler session
 OPEN_SPIN_CYCLES = 500_000_000  # the opening marker's spin, ~0.25 s
-OPEN_MARKERS = 4  # marker launches that open a session (the spin first)
+OPEN_MARKERS = 4  # marker launches that open a first session (spin first)
+MARKER_GROWTH = 8  # each retry opens with this many times the markers
 SESSION_TRIES = 3  # profiler sessions taken before a lost record fails
 MAX_LOST_SHARE = 1e-3  # of a session's kernel records (1 of 4800 went)
 
@@ -100,6 +102,22 @@ TRAIN_STAGES = (  # kernel name, its stage, the stage it opens
     ("preprocess_kernel", "preprocess", "binning"),
     ("blend_kernel", "blend_fwd", "loss"),
 )
+
+# edited-frame operating point (the JAX package's bench.py:139-165 and
+# :344-422, config 4): the novel view's scene, ring and tile, the cube
+# dropped over N_CAMS frames, its surfels, the seed-0 envmap
+GROUND_Z = 0.3
+CUBE_FACES = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                       [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                       [1, 5, 7], [1, 7, 3]], np.int64)
+EDIT_SURFELS = 50_000
+ENV_H, ENV_W, EDIT_LIGHTS, SHADOW_SCALE = 32, 64, 16, 2
+PHYSICS_SUBSTEPS = 64  # timed in one go
+PHYSICS_PROFILED = 8  # substeps in the profiler's session
+# the resting cube spans ~200 × 200 pixels of the last ring view; a
+# twentieth of that must change for the object to count as drawn
+# (checked over the scene's ground disc: see edited_frame_point)
+OBJECT_PIXELS_MIN = 2000
 
 # tolerances of the kernel checks
 MEAN2D_ATOL = 1e-4  # px, plus 2 float32 ulps of the coordinate
@@ -397,7 +415,7 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profiled(fn, reps: int) -> list:
+def profiled(fn, reps: int, max_lost: int | None = None) -> list:
     """The profiler's device records (kernels, memsets, copies) of
     ``reps`` calls of ``fn``, after one call outside the session.
 
@@ -406,25 +424,28 @@ def profiled(fn, reps: int) -> list:
     disagree by milliseconds, and by more after a long session, so a
     session can lose records (on an H100, the short sessions after a 2-4 s
     one lost all of theirs, and with idle padding alone, sessions still
-    lost their first two records).  So a session is padded with idle
-    time, opens with ``OPEN_MARKERS`` marker kernels (the first a spin
-    that holds the card ~0.25 s) and closes with one, all of which may
-    take such a loss, and is taken again, ``SESSION_TRIES`` times at
-    most, until the launches between the markers whose device record (by
-    correlation id) is missing are at most ``MAX_LOST_SHARE`` of them:
-    none in a short session.  Each missing record is printed with its
-    neighbours."""
+    lost their first two records; after a session of ~95,000 launches,
+    each short one lost its first seven).  So a session is padded with
+    idle time, opens with marker kernels (the first a spin that holds the
+    card ~0.25 s) and closes with one, all of which may take such a loss,
+    and is taken again, ``SESSION_TRIES`` times at most, each time with
+    ``MARKER_GROWTH`` times the opening markers of the last, until the
+    launches between the markers whose device record (by correlation id)
+    is missing are at most ``MAX_LOST_SHARE`` of them: none in a short
+    session (``max_lost``, when given, is the count allowed instead).
+    Each missing record is printed with its neighbours."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    for _ in range(SESSION_TRIES):
+    for attempt in range(SESSION_TRIES):
+        markers = OPEN_MARKERS * MARKER_GROWTH**attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
             torch.cuda._sleep(OPEN_SPIN_CYCLES)  # markers: spin_kernel
-            for _ in range(OPEN_MARKERS - 1):
+            for _ in range(markers - 1):
                 torch.cuda._sleep(1)
             for _ in range(reps):
                 fn()
@@ -438,39 +459,42 @@ def profiled(fn, reps: int) -> list:
                            and "Launch" in e.name() and "Kernel" in e.name()),
                           key=lambda e: e.start_ns())  # cu(da)Launch*Kernel*
         kernel = {e.correlation_id(): e.name() for e in device}
-        n = len(launches) - OPEN_MARKERS - 1
-        lost = [i for i in range(OPEN_MARKERS, OPEN_MARKERS + n)
+        n = len(launches) - markers - 1
+        lost = [i for i in range(markers, markers + n)
                 if launches[i].correlation_id() not in kernel]
         for i in lost[:3]:
             near = [kernel.get(launches[j].correlation_id(), "?")[:60]
                     for j in (i - 1, i + 1)]
             print(f"profiler: no device record for launch "
-                  f"{i - OPEN_MARKERS + 1} of {n} "
+                  f"{i - markers + 1} of {n} "
                   f"({launches[i].name()}), between {near[0]} and {near[1]}")
-        if n > 0 and len(lost) <= MAX_LOST_SHARE * n:
+        allowed = MAX_LOST_SHARE * n if max_lost is None else max_lost
+        if n > 0 and len(lost) <= allowed:
             break
-    check(n > 0 and len(lost) <= MAX_LOST_SHARE * n,
+    check(n > 0 and len(lost) <= allowed,
           f"the profiler lost {len(lost)} of {n} kernel records in each of "
           f"{SESSION_TRIES} sessions")
     return sorted((e for e in device if "spin_kernel" not in e.name()),
                   key=lambda e: e.start_ns())
 
 
-def device_times(fn, reps: int) -> dict[str, float]:
+def device_times(fn, reps: int, max_lost: int | None = None
+                 ) -> dict[str, float]:
     """Device milliseconds per call of ``fn`` for each name the profiler
     puts on the card."""
     times = {}
-    for e in profiled(fn, reps):
+    for e in profiled(fn, reps, max_lost):
         ms = e.duration_ns() / 1e6 / reps
         times[e.name()] = times.get(e.name(), 0.0) + ms
     return times
 
 
-def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+def device_ms(fn, reps: int, kernel: str | None = None,
+              max_lost: int | None = None) -> float:
     """Device milliseconds per call of ``fn``: the profiler's sum over
     all it puts on the card, or only over the kernels whose name
     contains ``kernel``."""
-    ms = sum(t for name, t in device_times(fn, reps).items()
+    ms = sum(t for name, t in device_times(fn, reps, max_lost).items()
              if kernel is None or kernel in name)
     check(ms > 0, f"the profiler saw no device time for {kernel or fn}")
     return ms
@@ -1269,6 +1293,347 @@ def train_timing(P, card, state, cams, images, cfg) -> tuple[dict, dict]:
     return ms, perf
 
 
+# ---- edited-frame operating point --------------------------------------------
+
+
+def cube_world(P):
+    """The JAX package's bench.py:139-165 drop: a 0.6 m cube at z = 1.5
+    over a ground quad at z = 0.3 (restitution 0.4); (world, corners)."""
+    from autovfx_tpu_torch.physics import solver, world
+
+    corners = np.array([[x, y, z] for x in (-0.3, 0.3) for y in (-0.3, 0.3)
+                        for z in (-0.3, 0.3)], np.float32)
+    ground_v = np.array([[-5, -5, GROUND_Z], [5, -5, GROUND_Z],
+                         [5, 5, GROUND_Z], [-5, 5, GROUND_Z]], np.float32)
+    ground_f = np.array([[0, 1, 2], [0, 2, 3]], np.int64)
+    objects = [{"pos": [0.0, 0.0, 1.5], "scale": 1.0,
+                "rigid_body": {"rb_type": "ACTIVE", "mass": 1.0,
+                               "restitution": 0.4}}]
+    w = world.RigidWorld.from_objects(
+        objects, [corners], scene_vertices=ground_v, scene_faces=ground_f,
+        cfg=solver.SolverConfig(), device=DEVICE)
+    return w, corners
+
+
+def no_syncs(fn, what: str) -> None:
+    """Run ``fn`` with PyTorch's sync debug mode on; fail if any of its
+    operations waited on the card (a copy to the host, ``.item()``, a
+    ``nonzero``...)."""
+    import warnings
+
+    sync()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(x.message) for x in caught if "synchroniz" in str(x.message)]
+    check(not syncs, f"{what} waits on the card: {syncs[:3]}")
+
+
+def ground_disc(g):
+    """The ground disc of ``make_garden_like``'s scene: its first half of
+    rows (then come the clutter and the far shell)."""
+    n = g.capacity // 2
+    return dataclasses.replace(g, **{f.name: getattr(g, f.name)[:n]
+                                     for f in dataclasses.fields(g)})
+
+
+def edit_inputs(P, g, cams):
+    """The drop simulated on the card, then the clip's inputs: 50,000
+    surfels of the cube, the seed-0 32×64 envmap, 16 lights."""
+    from autovfx_tpu_torch.core.cameras import stack_cameras
+    from autovfx_tpu_torch.physics import world
+    from autovfx_tpu_torch.render import clip, meshsplat
+
+    w, corners = cube_world(P)
+    _, pos, quat = world.simulate(w, N_CAMS)
+    _, pos2, quat2 = world.simulate(w, N_CAMS)
+    check(np.array_equal(pos, pos2) and np.array_equal(quat, quat2),
+          "two simulate runs on the card differ")
+    z = pos[:, 0, 2]  # the COM's height; the cube rests at ground + 0.3
+    check(z[-1] < z[0] - 0.5, f"the cube did not fall: z {z}")
+    check(z.min() > GROUND_Z + 0.3 - w.cfg.collision_margin,
+          f"the cube went through the ground: z {z}")
+    traj_pos, traj_rot = world.origin_trajectory(w, pos, quat)
+    surf = meshsplat.sample_mesh_surfels(corners, CUBE_FACES,
+                                         num_samples=EDIT_SURFELS,
+                                         device=DEVICE)
+    env = (0.4 + 0.6 * np.random.RandomState(0).rand(ENV_H, ENV_W, 3)
+           ).astype(np.float32)
+    inp = clip.build_clip_inputs(
+        bg=g, cams=stack_cameras(cams),
+        objects=[{"scale": 1.0, "material": {"rgb": [0.8, 0.2, 0.2]}}],
+        surfels=[surf], traj_pos=traj_pos, traj_rot=traj_rot,
+        hull_shape=w.shape, env=env, num_lights=EDIT_LIGHTS, device=DEVICE)
+    print(f"edit: the cube's COM z over {N_CAMS} frames "
+          + ", ".join(f"{x:.3f}" for x in z) + f"; {EDIT_SURFELS} surfels, "
+          f"{inp.light_dirs.shape[0]} lights after deduplication, "
+          f"{inp.hull_planes.shape[1]} hull planes; two simulate runs "
+          "bit-equal: ok")
+    return w, inp
+
+
+def edit_stages(P, inp, i, config):
+    """The fused frame's stages on frame ``i``, as functions of nothing,
+    each from the outputs of the stages before it (made once here)."""
+    from autovfx_tpu_torch.core.cameras import index_camera
+    from autovfx_tpu_torch.ops import binning, blend_cuda, preprocess_cuda
+    from autovfx_tpu_torch.ops.projection import Splats2D, empty_splats
+    from autovfx_tpu_torch.ops.rasterize import RenderOutput
+    from autovfx_tpu_torch.render import clip, shadow
+
+    cam = index_camera(inp.cams, i)
+    n_bg = inp.bg.capacity
+    n = n_bg + inp.surf_points.shape[0]
+    buf = empty_splats(n, DEVICE)
+    rows = lambda lo, hi: Splats2D(*(x[lo:hi] for x in buf))
+    pre = lambda g, out: preprocess_cuda.preprocess(g, cam, tile=TILE,
+                                                    out=out)
+    g_obj = clip.shaded_object_gaussians(inp, i, cam)
+    pre(inp.bg, rows(0, n_bg))
+    pre(g_obj, rows(n_bg, n))
+    binned = binning.bin_splats(buf, cam.width, cam.height,
+                                config.dup_budget, tile=TILE)
+    color, depth, alpha = blend_cuda.blend(binned, buf, cam.width,
+                                           cam.height, TILE)
+    out = RenderOutput(color, depth, alpha, buf.radius, binned.overflow)
+    a = alpha.clamp(0.0, 1.0)
+    planes = clip.world_hull_planes_at(inp, i)
+    scene_depth = clip.pass_depth(out, a)
+    w_obj = shadow.hull_object_weight(cam, scene_depth, planes, inp.hull_mask,
+                                      pad=clip.object_pad(inp))
+    ratio = shadow.shadow_ratio_map(
+        cam, depth, a.clamp(min=1e-3), inp.light_dirs, inp.light_weights,
+        planes, inp.hull_mask, scale=SHADOW_SCALE)
+    bg_part, obj_part = rows(0, n_bg), rows(n_bg, n)
+    stages = {
+        "background preprocess": lambda: pre(inp.bg, bg_part),
+        "object shading + preprocess": lambda: pre(
+            clip.shaded_object_gaussians(inp, i, cam), obj_part),
+        "binning": lambda: binning.bin_splats(buf, cam.width, cam.height,
+                                              config.dup_budget, tile=TILE),
+        "blend": lambda: blend_cuda.blend(binned, buf, cam.width, cam.height,
+                                          TILE),
+        "hull weight": lambda: shadow.hull_object_weight(
+            cam, clip.pass_depth(out, a), clip.world_hull_planes_at(inp, i),
+            inp.hull_mask, pad=clip.object_pad(inp)),
+        "shadow ratio": lambda: shadow.shadow_ratio_map(
+            cam, depth, a.clamp(min=1e-3), inp.light_dirs, inp.light_weights,
+            planes, inp.hull_mask, scale=SHADOW_SCALE),
+        "composite": lambda: clip.fused_composite(out, ratio, w_obj),
+    }
+    parts = (preprocess_cuda.preprocess(inp.bg, cam, tile=TILE),
+             preprocess_cuda.preprocess(g_obj, cam, tile=TILE))
+    join_by_cat = lambda: Splats2D(*(torch.cat(x) for x in zip(*parts)))
+    return dict(cam=cam, g_obj=g_obj, splats=buf, binned=binned,
+                images=(color, depth, alpha), ratio=ratio, w_obj=w_obj,
+                stages=stages, join_by_cat=join_by_cat)
+
+
+def edited_frame_point(P, card: str) -> tuple[dict, dict, dict]:
+    """The edited frame at the operating point of the JAX package's
+    bench.py:344-422 (config 4), through ``render_clip(fused=True)``."""
+    from autovfx_tpu_torch.physics import solver, world
+    from autovfx_tpu_torch.render import clip
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like
+
+    ops = P.ops
+    cams = ring_cameras()
+    g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
+    w, inp = edit_inputs(P, g, cams)
+    worst = 0
+    for i, cam in enumerate(cams):
+        g_obj = clip.shaded_object_gaussians(inp, i, cam)
+        s = P.ops.rasterize.preprocess_sets([g, g_obj], cam,
+                                            P.RasterConfig(tile=TILE))
+        worst = max(worst, int(ops.binning.required_budget(s)))
+    budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
+    config = P.RasterConfig(dup_budget=budget, tile=TILE)
+    print(f"edit duplicates: worst merged view {worst}, budget {budget}")
+
+    # the main path, counted
+    sync()
+    reset_counters(ops)
+    frames = clip.render_clip(inp, N_CAMS, config, fused=True)
+    sync()
+    launches = counters(ops)
+    check_launches(launches, {"preprocess": 2 * N_CAMS,
+                              "duplicate_with_keys": N_CAMS,
+                              "blend_fwd": N_CAMS}, f"{N_CAMS} edited frames")
+    check(frames.shape == (N_CAMS, HEIGHT, WIDTH, 3), "edited frames: shape")
+    check(bool(torch.isfinite(frames).all()), "edited frames: not finite")
+    check(frames.min().item() >= 0.0 and frames.max().item() <= 1.0,
+          "edited frames: outside [0, 1]")
+
+    # each frame's kernels against their plain versions, and its binning
+    tx, ty = ops.projection.num_tiles(WIDTH, HEIGHT, TILE)
+    rng = np.random.default_rng(5)
+    err = {}
+    for i in range(N_CAMS):
+        st = edit_stages(P, inp, i, config)
+        what = f"edited frame {i}"
+        check(not bool(st["binned"].overflow),
+              f"{what}: duplicate budget overflow")
+        if i == N_CAMS - 1:  # the cube at rest, in view
+            err["preprocess"] = check_preprocess(
+                ops.preprocess_cuda.preprocess_kernel(st["g_obj"], st["cam"],
+                                                      tile=TILE),
+                ops.projection.preprocess(st["g_obj"], st["cam"], tile=TILE),
+                f"{what} surfels")
+            err["duplicate_with_keys"] = check_duplicates(
+                P, st["splats"], tx, tx * ty, budget, f"{what} merged")
+        tiles = torch.from_numpy(
+            rng.choice(tx * ty, CHECK_TILES, replace=False)).to(DEVICE)
+        err["blend_fwd"] = max(err.get("blend_fwd", 0.0), check_blend(
+            P, st["binned"], st["splats"], st["images"], tiles, WIDTH, HEIGHT,
+            TILE, what))
+        sync()
+
+    # the object in view and its shadow, on the last frame.  At the
+    # bench point the cube lands inside the scene's clutter (mean alpha
+    # 1 in every view), so these are checked on the same clip over the
+    # scene's ground disc alone, where nothing stands in front of it
+    last = N_CAMS - 1
+    bg_only = P.rasterize(g, cams[last], config=config).color.clamp(0, 1)
+    hidden = int(((frames[last] - bg_only).abs().amax(-1) > 0.1).sum())
+    ground = ground_disc(g)
+    inp_open = dataclasses.replace(inp, bg=ground)
+    st = edit_stages(P, inp_open, last, config)
+    check(not bool(st["binned"].overflow), "ground-disc frame: overflow")
+    open_frame = clip.render_edited_frame_fused(inp_open, last, config,
+                                                shadow_scale=SHADOW_SCALE)
+    open_bg = P.rasterize(ground, cams[last], config=config).color.clamp(0, 1)
+    changed = int(((open_frame - open_bg).abs().amax(-1) > 0.1).sum())
+    shadowed = int(((st["ratio"] < 0.99) & (st["w_obj"] == 0)).sum())
+    check(bool(torch.isfinite(open_frame).all()), "ground-disc frame: finite")
+    check(changed > OBJECT_PIXELS_MIN,
+          f"ground-disc frame {last}: {changed} pixels differ from the "
+          f"background by > 0.1 (at least {OBJECT_PIXELS_MIN} wanted)")
+    check(shadowed > 0,
+          f"ground-disc frame {last}: no shadowed background pixel")
+    print(f"edited frames: {launches}; the last frame: {hidden} pixels "
+          f"differ from the background-only frame by > 0.1 (the cube rests "
+          f"inside the clutter); over the ground disc alone "
+          f"({ground.capacity} splats): {changed} pixels differ by > 0.1, "
+          f"{shadowed} background pixels shadowed (ratio < 0.99, object "
+          f"weight 0); checks at {N_SPLATS} + {EDIT_SURFELS} splats "
+          f"{WIDTH}x{HEIGHT} tile {TILE}: kernel 1 on the surfels, kernel 2 "
+          f"on the merged set, kernel 3 on {CHECK_TILES} tiles/frame against "
+          "the plain versions: ok")
+    del ground, inp_open, st, open_frame, open_bg
+    st = edit_stages(P, inp, last, config)
+
+    # times
+    def frame(i):
+        return clip.render_edited_frame_fused(inp, i % N_CAMS, config,
+                                              shadow_scale=SHADOW_SCALE)
+
+    for i in range(WARMUP):
+        frame(i)
+    no_syncs(lambda: frame(0), "the fused edited frame")
+    no_syncs(lambda: solver.substep(w.shape, w.state, w.params, w.grid, w.cfg),
+             "a physics substep")
+    print("the fused edited frame and a physics substep read nothing back "
+          "from the card (sync debug mode): ok")
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = [cuda_ms(lambda i=i: frame(i), 1) for i in range(TIMED)]
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(frame_ms)
+    print(f"[{card}] edited frame {WIDTH}x{HEIGHT} tile {TILE}, {N_SPLATS} + "
+          f"{EDIT_SURFELS} splats, {inp.light_dirs.shape[0]} lights, shadow "
+          f"scale {SHADOW_SCALE}: median {median:.3f} ms over {TIMED} frames "
+          f"(min {min(frame_ms):.3f}, max {max(frame_ms):.3f}); "
+          f"{1000.0 / median:.1f} frames/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    run = lambda: [frame(i) for i in range(TIMED)]
+    streamed = cuda_ms(run, 3) / TIMED
+    records = profiled(run, 1)
+    busy = sum(e.duration_ns() for e in records) / 1e6 / TIMED
+    print(f"[{card}] {TIMED} edited frames back to back: {streamed:.3f} "
+          f"ms/frame, device busy {busy:.3f} ms/frame, idle share "
+          f"{1.0 - busy / streamed:.3f}; {len(records) / TIMED:.0f} device "
+          "records (kernels, copies) a frame")
+
+    # a stage of small kernels may lose its session's first record (the
+    # profiler's clock; see ``profiled``): one is allowed, a few
+    # microseconds of ~10 calls' milliseconds
+    stage_ms = {k: device_ms(fn, KERNEL_REPS, max_lost=1)
+                for k, fn in st["stages"].items()}
+    cat_ms = device_ms(st["join_by_cat"], KERNEL_REPS, max_lost=1)
+    print(f"[{card}] edited frame device time by stage (ms, profiler, last "
+          "frame): " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"; sum {sum(stage_ms.values()):.3f}; join: none (kernel 1 "
+          f"writes each set's rows of one buffer; a torch.cat of the two "
+          f"sets' splats would take {cat_ms:.3f})")
+
+    # kernels 1-3 on the last frame's shapes
+    cam, g_obj, s, b = st["cam"], st["g_obj"], st["splats"], st["binned"]
+    counts = s.tiles_touched
+    starts = torch.cumsum(counts, 0) - counts
+    dup_args = (counts, starts, s.tile_min, s.tile_max, s.depth, tx, tx * ty,
+                budget)
+    k1 = lambda gg: (lambda: ops.preprocess_cuda.preprocess_kernel(
+        gg, cam, tile=TILE))
+    ms = {"preprocess": device_ms(k1(g), KERNEL_REPS, "preprocess_kernel")
+          + device_ms(k1(g_obj), KERNEL_REPS, "preprocess_kernel"),
+          "duplicate_with_keys": device_ms(
+              lambda: ops.fill_cuda.duplicate_with_keys_kernel(*dup_args),
+              KERNEL_REPS, "duplicate_kernel"),
+          "blend_fwd": device_ms(lambda: ops.blend_cuda.blend_kernel(
+              b, s, WIDTH, HEIGHT, TILE), KERNEL_REPS, "blend_kernel")}
+    clock = sm_clock_mhz()
+    n_live = int((counts > 0).sum())
+    _, bst = ops.blend_cuda.blend_train_kernel(b, s, WIDTH, HEIGHT, TILE)
+    pairs = pair_counts(P, b, s, bst.n_contrib, WIDTH, HEIGHT, TILE)
+    k_rest = g.sh_rest.shape[1]
+    w_bg, w_obj = (preprocess_work(x.capacity, k_rest) for x in (g, g_obj))
+    work = {"preprocess": tuple(a + c for a, c in zip(w_bg, w_obj)),
+            "duplicate_with_keys": duplicate_work(s.radius.shape[0], n_live,
+                                                  budget),
+            "blend_fwd": blend_work(pairs, n_live)}
+    perf = {k: {"edited_frame": timed_bound(ms[k], work[k], clock)}
+            for k in work}
+    print(f"[{card}] last edited frame: {n_live} live splats, {pairs}; "
+          "kernel 1 is its two launches (background and surfels)")
+    print_bounds(card, perf, "edited_frame")
+
+    # physics and the whole replay
+    state = w.state
+    for _ in range(WARMUP):
+        state, _ = solver.substep(w.shape, state, w.params, w.grid, w.cfg)
+    sync()
+    substeps = lambda: [solver.substep(w.shape, w.state, w.params, w.grid,
+                                       w.cfg) for _ in range(PHYSICS_SUBSTEPS)]
+    sub_ms = cuda_ms(substeps, 3)
+    # last, and short: the profiler's sessions after a long one lose
+    # their first records
+    records = profiled(lambda: [solver.substep(w.shape, w.state, w.params,
+                                               w.grid, w.cfg)
+                                for _ in range(PHYSICS_PROFILED)], 1)
+    sub_busy = sum(e.duration_ns() for e in records) / 1e6 / PHYSICS_PROFILED
+    t0 = time.perf_counter()
+    _, pos, quat = world.simulate(w, N_CAMS)
+    traj = world.origin_trajectory(w, pos, quat)
+    replay = clip.render_clip(
+        dataclasses.replace(inp, traj_pos=torch.from_numpy(traj[0]).to(DEVICE),
+                            traj_rot=torch.from_numpy(traj[1]).to(DEVICE)),
+        N_CAMS, config, fused=True)
+    sync()
+    replay_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(replay).all()), "replay: not finite")
+    print(f"[{card}] physics: {PHYSICS_SUBSTEPS * 1000.0 / sub_ms:.0f} "
+          f"substeps/s ({sub_ms / PHYSICS_SUBSTEPS:.3f} ms a substep, CUDA "
+          f"events; device busy {sub_busy:.3f} ms in "
+          f"{len(records) / PHYSICS_PROFILED:.0f} device records a substep, "
+          f"profiler); replay (simulate {N_CAMS} frames + render_clip) "
+          f"{replay_s * 1000.0:.1f} ms wall")
+
+    return launches, err, perf
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: torch.cuda.is_available() is False")
@@ -1297,17 +1662,19 @@ def main() -> None:
     err.update(small_grad_checks(P))
     train_launches, train_err, (train_ms, train_perf) = training_point(
         P, card)
-    for k, e in train_err.items():
+    edit_launches, edit_err, edit_perf = edited_frame_point(P, card)
+    for k, e in list(train_err.items()) + list(edit_err.items()):
         err[k] = max(err.get(k, 0.0), e)
     ms.update(train_ms)
-    for k, x in train_perf.items():
+    for k, x in list(train_perf.items()) + list(edit_perf.items()):
         perf.setdefault(k, {}).update(x)
     # each path's own counts; kernel 3 runs its training variant there
     train_launches["blend_fwd"] = train_launches.pop("blend_fwd_train")
     kernels = []
     for k in KERNELS:
         by_path = {"novel_view": view_launches[k],
-                   "training": train_launches[k]}
+                   "training": train_launches[k],
+                   "edited_frame": edit_launches[k]}
         main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],

@@ -222,3 +222,65 @@ class TestConvertAndSynthetic:
         cam = S.garden_camera(648, 420, device="cpu")
         assert (cam.width, cam.height) == (648, 420)
         close(cam.fx, 960.98 / 2)
+
+
+# ---- the edited frame's additions (quaternion algebra, camera matrices) -------
+
+
+def _quats(rng, n):
+    q = rng.standard_normal((n, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def test_quaternion_algebra_matches_jax():
+    rng = np.random.default_rng(20)
+    a, b = _quats(rng, 50), _quats(rng, 50)
+    v = rng.standard_normal((50, 3)).astype(np.float32)
+    axis = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    ang = rng.uniform(-3, 3, 50).astype(np.float32)
+    t = torch.tensor
+    pairs = [
+        (Q.quat_multiply(t(a), t(b)), JQ.quat_multiply(jnp.asarray(a),
+                                                       jnp.asarray(b))),
+        (Q.quat_rotate(t(a), t(v)), JQ.quat_rotate(jnp.asarray(a),
+                                                   jnp.asarray(v))),
+        (Q.quat_conjugate(t(a)), JQ.quat_conjugate(jnp.asarray(a))),
+        (Q.quat_from_axis_angle(t(axis), t(ang)),
+         JQ.quat_from_axis_angle(jnp.asarray(axis), jnp.asarray(ang))),
+        (Q.quat_integrate(t(a), t(v), 1.0 / 60.0),
+         JQ.quat_integrate(jnp.asarray(a), jnp.asarray(v), 1.0 / 60.0)),
+        (Q.euler_to_rotmat(0.3, -1.1, 2.0),
+         JQ.euler_to_rotmat(jnp.float32(0.3), jnp.float32(-1.1),
+                            jnp.float32(2.0))),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=2e-6)
+
+
+def test_camera_matrices_match_jax():
+    kw = dict(fx=70.0, fy=72.0, width=97, height=63)
+    cam = C.look_at_camera([2.0, -1.0, 1.5], [0, 0, 0.2], [0, 0, 1],
+                           device="cpu", **kw)
+    jcam = JC.look_at_camera([2.0, -1.0, 1.5], [0, 0, 0.2], [0, 0, 1], **kw)
+    for name in ("c2w", "w2c", "K"):
+        np.testing.assert_allclose(getattr(cam, name).numpy(),
+                                   np.asarray(getattr(jcam, name)), rtol=0,
+                                   atol=1e-6)
+    pts = np.random.default_rng(21).standard_normal((40, 3)).astype(
+        np.float32)
+    (uv, z), (juv, jz) = cam.project(torch.tensor(pts)), jcam.project(
+        jnp.asarray(pts))
+    np.testing.assert_allclose(uv.numpy(), np.asarray(juv), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-6,
+                               atol=1e-6)
+    for factor in (2, 3):
+        small, jsmall = cam.resized(factor), jcam.resized(factor)
+        assert (small.width, small.height) == (jsmall.width, jsmall.height)
+        for f in ("fx", "fy", "cx", "cy"):
+            np.testing.assert_allclose(getattr(small, f).numpy(),
+                                       np.asarray(getattr(jsmall, f)),
+                                       rtol=1e-7)
+    batch = C.stack_cameras([cam, cam])
+    assert batch.c2w.shape == (2, 4, 4) and batch.K.shape == (2, 3, 3)

@@ -404,3 +404,66 @@ def test_backward_wrappers_refuse_what_kernels_do_not_take(scene):
     with pytest.raises(ValueError, match="n_contrib"):
         blend_cuda.blend_bwd_kernel(b, s, st._replace(
             n_contrib=st.n_contrib.float()), *imgs, W, H, 16)
+
+
+# ---- the edited frame ---------------------------------------------------------
+
+
+def test_preprocess_writes_rows_of_a_caller_buffer(dev, scene):
+    """Kernel 1 into row slices of one buffer gives the rows it returns
+    on its own, and refuses a buffer of the wrong shape or device."""
+    from autovfx_tpu_torch.ops.projection import empty_splats
+
+    g, cam = scene
+    buf = empty_splats(g.capacity + 100, dev)
+    rows = projection.Splats2D(*(x[100:] for x in buf))
+    got = preprocess_cuda.preprocess_kernel(g, cam, tile=16, out=rows)
+    want = preprocess_cuda.preprocess_kernel(g, cam, tile=16)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    short = projection.Splats2D(*(x[101:] for x in buf))
+    with pytest.raises(ValueError, match="shape"):
+        preprocess_cuda.preprocess_kernel(g, cam, tile=16, out=short)
+
+
+def test_rasterize_multi_on_the_card(dev, scene):
+    """The merged render of two sets equals ``rasterize`` of their
+    concatenation bit for bit, and the CPU path's image within the
+    novel view's budget."""
+    from autovfx_tpu_torch.core.gaussians import merge
+
+    g, cam = scene
+    g2 = make_gaussians(800, np.random.default_rng(4), spread=0.4,
+                        device=dev)
+    cfg = P.RasterConfig(dup_budget=1 << 17, tile=16)
+    a = P.rasterize_multi([g, g2], cam, config=cfg)
+    b = P.rasterize(merge(g, g2), cam, config=cfg)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    to_cpu = lambda x: dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).cpu() for f in dataclasses.fields(x)
+        if torch.is_tensor(getattr(x, f.name))})
+    c = P.rasterize_multi([to_cpu(g), to_cpu(g2)], to_cpu(cam), config=cfg)
+    assert cs.psnr(a.color.cpu(), c.color) > cs.BLEND_PSNR_DB
+
+
+def test_physics_on_the_card_matches_the_cpu(dev):
+    """The bench's cube drop on the card against the same solver on the
+    CPU: centers of mass within 1e-3 m over 8 frames; two card runs
+    bit-equal."""
+    from autovfx_tpu_torch.physics import world
+
+    def drop(device):
+        saved = cs.DEVICE
+        cs.DEVICE = device
+        try:
+            return cs.cube_world(P)[0]
+        finally:
+            cs.DEVICE = saved
+
+    card, cpu = drop("cuda"), drop("cpu")
+    _, p1, q1 = world.simulate(card, 8)
+    _, p2, q2 = world.simulate(card, 8)
+    assert np.array_equal(p1, p2) and np.array_equal(q1, q2)
+    _, pc, _ = world.simulate(cpu, 8)
+    assert np.abs(p1 - pc).max() <= 1e-3
