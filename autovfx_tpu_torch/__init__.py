@@ -14,13 +14,16 @@ versions.
   wrappers and backwards; ``rasterize`` / ``render`` / the merged
   ``rasterize_multi``; kNN; ray-mesh casting.
 - ``autovfx_tpu_torch.render`` the edited frame: envmap IBL, object
-  surfels, hull shadows, the composite and the clip loop.
+  surfels, hull shadows, the composite and the clip loop; the smoke and
+  fire volume, the liquid melt and the other effects; DiffusionLight
+  envmaps; panoramas.
 - ``autovfx_tpu_torch.physics`` convex hulls, the scene-mesh grid and
   the rigid-body solver that drops objects into a scene.
 - ``autovfx_tpu_torch.train``  losses, densification, the trainer
   (``train_step``, ``densify_step``, ``reset_opacity_step``, ``train``),
   ``.npz`` checkpoints and init points cast onto a scene mesh.
-- ``autovfx_tpu_torch.utils``  seeded synthetic scenes.
+- ``autovfx_tpu_torch.utils``  seeded synthetic scenes, LPIPS, the
+  evaluation metrics, float32 convolutions.
 - ``autovfx_tpu_torch.convert`` carries arrays of the JAX package's
   parameters and training state into this package's tensors.
 """

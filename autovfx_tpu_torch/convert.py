@@ -3,8 +3,9 @@
 Takes plain arrays (``np.asarray`` of each field of another package's
 ``Gaussians`` or ``Camera``), as a dict or as keyword arguments, and
 returns this package's dataclasses on a chosen device; ``train_state``
-takes a whole training state in the arrays of a checkpoint and
-``clip_inputs`` an edited clip's inputs.  Only
+takes a whole training state in the arrays of a checkpoint,
+``clip_inputs`` an edited clip's inputs (with its smoke volume and melt
+tracers) and ``lpips_params`` the LPIPS network's weights.  Only
 arrays cross the boundary, so nothing here imports another framework.
 """
 from __future__ import annotations
@@ -99,12 +100,15 @@ def clip_inputs(arrays: Mapping, bg: Gaussians, cams: Camera, *,
     """A ``render.clip.ClipInputs`` from arrays named like its fields
     (``surf_*``, ``traj_*``, ``hull_planes``, ``hull_mask``, ``env``,
     ``env_sh``, ``light_dirs``, ``light_weights`` and, optionally,
-    ``env_ggx``) and the background and stacked cameras already carried
-    over.  ``surf_body`` becomes int64 and ``hull_mask`` bool."""
+    ``env_ggx``, the ``smoke_*`` volume and the ``melt_*`` tracers) and
+    the background and stacked cameras already carried over.
+    ``surf_body`` becomes int64, ``smoke_origin_cells`` int32, and
+    ``hull_mask`` and ``melt_mask`` bool."""
     device = devices.resolve(device)
     from autovfx_tpu_torch.render.clip import ClipInputs
 
-    ints = {"surf_body": torch.int64, "hull_mask": torch.bool}
+    ints = {"surf_body": torch.int64, "hull_mask": torch.bool,
+            "smoke_origin_cells": torch.int32, "melt_mask": torch.bool}
     names = [f.name for f in dataclasses.fields(ClipInputs)
              if f.name not in ("bg", "cams")]
     out = {}
@@ -115,3 +119,20 @@ def clip_inputs(arrays: Mapping, bg: Gaussians, cams: Camera, *,
         out[name] = torch.tensor(np.asarray(arrays[name]), device=device).to(dt)
     return ClipInputs(bg=bg, cams=cams, **out)
 
+
+
+def lpips_params(convs, lins, source: str, *, device=devices.DEFAULT):
+    """A ``utils.lpips.LPIPSParams`` from the JAX package's LPIPS weights:
+    ``convs`` a sequence of (w, b) with ``w`` (3, 3, in, out) (HWIO;
+    this package's convolutions are OIHW), ``lins`` the five heads' (C,)
+    weights, ``source`` "file" or "random"."""
+    from autovfx_tpu_torch.utils.lpips import LPIPSParams
+
+    device = devices.resolve(device)
+    out = []
+    for w, b in convs:
+        w = np.asarray(w, np.float32).transpose(3, 2, 0, 1)  # -> OIHW
+        out.append((_f32(w, device), _f32(b, device)))
+    return LPIPSParams(convs=tuple(out),
+                       lins=tuple(_f32(x, device) for x in lins),
+                       source=str(source))

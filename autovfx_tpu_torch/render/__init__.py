@@ -1,5 +1,6 @@
 """Edited-frame rendering: envmap IBL, object surfels, hull shadows, the
-composite and the clip loop.
+composite and the clip loop; smoke, fire and liquid melt; DiffusionLight
+envmaps and panoramas.
 
 The package also exports a function ``render`` (``ops.rasterize.render``),
 and importing this subpackage rebinds ``autovfx_tpu_torch.render`` to

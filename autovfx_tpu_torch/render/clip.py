@@ -1,25 +1,24 @@
-"""Edited-clip rendering: physics replay, object shading, shadows and the
-composite of every frame, on the device.
+"""Edited-clip rendering: physics replay, object shading, shadows, effects
+and the composite of every frame, on the device.
 
 Counterpart of ``autovfx_tpu/render/clip.py``.  Per frame:
 
-1. the inserted objects' surfels moved by the rigid trajectory and
-   IBL-shaded (``shaded_object_gaussians``);
-2. either one merged render of the background and object sets
+1. the inserted objects' surfels moved by the rigid trajectory (or, where
+   they melt, by the liquid's tracers) and IBL-shaded
+   (``shaded_object_gaussians``);
+2. either one merged render of the background, object and smoke sets
    (``render_edited_frame_fused``: ``ops.rasterize.rasterize_multi``,
    kernels 1-3) with an analytic object weight from the hulls, or two
    renders and the compositor (``render_edited_frame``);
 3. the envmap-visibility shadow ratio against the objects' hulls;
-4. the composite.
+4. the composite, and on the fused path the fire splats' own render
+   added on top.
 
 The merged render is exact float32 (the JAX package's fused frame needs
 its bf16 Pallas feature pack), so the port's fused frame also runs on
-CPU tensors, through the kernels' plain versions.
-
-Not ported here: the smoke, fire and liquid-melt inputs of the JAX
-``ClipInputs`` and ``smoke_cfg`` (effects, a later slice: they raise
-``NotImplementedError``), and ``pack_rows`` / ``bg_rows`` (the TPU's
-scene-rows layout, which the merged render does not need).
+CPU tensors, through the kernels' plain versions.  ``pack_rows`` and
+``bg_rows`` (the TPU's scene-rows layout, which the merged render does
+not need) are not ported.
 """
 from __future__ import annotations
 
@@ -42,13 +41,12 @@ from autovfx_tpu_torch.render import composite as RCOMP
 from autovfx_tpu_torch.render import ibl as RIBL
 from autovfx_tpu_torch.render import meshsplat as RMS
 from autovfx_tpu_torch.render import shadow as RSH
+from autovfx_tpu_torch.render import smoke as SMK
 from autovfx_tpu_torch.utils.gather import take
-
-EFFECTS_SLICE = ("smoke, fire and liquid melt are the effects slice "
-                 "(queue 1 slice 6 of ROADMAP.md), not ported yet")
 
 DEPTH_ALPHA = 0.01  # coverage below which a pass has no depth (1e9)
 NO_DEPTH = 1e9
+FIRE_BUDGET = 1 << 18  # the fire render's duplicate budget, at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +76,19 @@ class ClipInputs:
     light_dirs: torch.Tensor  # (L, 3)
     light_weights: torch.Tensor  # (L,)
     env_ggx: Optional[torch.Tensor] = None  # (levels, H, W, 3)
+    # a smoke/fire volume (the whole clip's solver output): smoke splats
+    # join the merged render, fire renders alone and is added
+    smoke_density: Optional[torch.Tensor] = None  # (F, R, R, R)
+    smoke_temp: Optional[torch.Tensor] = None  # (F, R, R, R)
+    smoke_origin: Optional[torch.Tensor] = None  # (3,)
+    smoke_extent: Optional[torch.Tensor] = None  # () float32
+    # the adaptive domain's per-frame offsets in cells (zeros when fixed)
+    smoke_origin_cells: Optional[torch.Tensor] = None  # (F, 3) int32
+    # liquid-melt tracers: surfels in melt_mask take their world pose
+    # from melt_pos / melt_norm[frame] instead of the rigid trajectory
+    melt_pos: Optional[torch.Tensor] = None  # (F, S, 3)
+    melt_norm: Optional[torch.Tensor] = None  # (F, S, 3)
+    melt_mask: Optional[torch.Tensor] = None  # (S,) bool
 
 
 def _numpy(x) -> np.ndarray:
@@ -103,10 +114,13 @@ def build_clip_inputs(
     their surfel dicts (``sample_mesh_surfels``, numpy or tensors), the
     trajectory (F, B, 3) / (F, B, 3, 3), the physics hulls (anything
     with ``planes`` and ``plane_mask``) and the envmap.  ``bg`` and
-    ``cams`` are used as they are."""
+    ``cams`` are used as they are.
+
+    ``smoke_traj``: (states, origin, extent, smoke_cfg), or the same with
+    the adaptive domain's per-frame origin cells (F, 3) fifth
+    (``smoke.simulate_smoke``).  ``melt``: a dict of the tracers' ``pos``
+    and ``norm`` (F, S, 3) and the melting surfels' ``mask`` (S,)."""
     device = devices.resolve(device)
-    if smoke_traj is not None or melt is not None:
-        raise NotImplementedError(f"build_clip_inputs: {EFFECTS_SLICE}")
     pts, nrm, col, rad, body, rough, metal = [], [], [], [], [], [], []
     for i, (obj, s) in enumerate(zip(objects, surfels)):
         s = {k: _numpy(v) for k, v in s.items()}
@@ -143,10 +157,30 @@ def build_clip_inputs(
     dirs, contrib = clip_lights(env, num_lights)
     hull_planes, hull_mask = RSH.trim_hull_planes(
         _numpy(hull_shape.planes), _numpy(hull_shape.plane_mask))
-    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt,
-                                                 device=device)
+    def t(a, dt=torch.float32):  # a tensor is moved, an array copied
+        if torch.is_tensor(a):
+            return a.to(device=device, dtype=dt)
+        return torch.tensor(np.asarray(a), dtype=dt, device=device)
+
     env = np.asarray(env, np.float32)
+    effects = {}
+    if smoke_traj is not None:
+        if len(smoke_traj) not in (4, 5):
+            raise ValueError("smoke_traj is (states, origin, extent, "
+                             "smoke_cfg[, origin_cells])")
+        states, s_origin, s_extent = smoke_traj[:3]
+        frames = states.density.shape[0]
+        cells = (smoke_traj[4] if len(smoke_traj) == 5
+                 else np.zeros((frames, 3), np.int32))
+        effects.update(
+            smoke_density=t(states.density), smoke_temp=t(states.temperature),
+            smoke_origin=t(s_origin), smoke_extent=t(s_extent),
+            smoke_origin_cells=t(cells, torch.int32))
+    if melt is not None:
+        effects.update(melt_pos=t(melt["pos"]), melt_norm=t(melt["norm"]),
+                       melt_mask=t(melt["mask"], torch.bool))
     return ClipInputs(
+        **effects,
         bg=bg,
         cams=cams,
         surf_points=t(np.concatenate(pts)),
@@ -196,6 +230,10 @@ def shaded_object_gaussians(inp: ClipInputs, frame_idx, cam: Camera) -> Gaussian
     n_world = torch.stack(
         [rb[:, i, 0] * nx + rb[:, i, 1] * ny + rb[:, i, 2] * nz
          for i in range(3)], dim=-1)
+    if inp.melt_pos is not None:  # the liquid's tracers own melting surfels
+        m = inp.melt_mask[:, None]
+        p_world = torch.where(m, inp.melt_pos[frame_idx], p_world)
+        n_world = torch.where(m, inp.melt_norm[frame_idx], n_world)
     view = p_world - cam.center[None]
     view = view / torch.clamp(torch.linalg.norm(view, dim=-1, keepdim=True),
                               min=1e-12)
@@ -262,15 +300,46 @@ def object_pad(inp: ClipInputs) -> torch.Tensor:
 
 
 def fused_composite(out: RenderOutput, ratio: torch.Tensor,
-                    w_obj: torch.Tensor) -> torch.Tensor:
+                    w_obj: torch.Tensor,
+                    emission: Optional[torch.Tensor] = None) -> torch.Tensor:
     """frame = C · (1 − (1 − ratio)·(1 − w_obj)·α) where the ratio is a
-    real shadow (|ratio − 1| ≥ 0.01), clipped to [0, 1]."""
+    real shadow (|ratio − 1| ≥ 0.01), plus ``emission`` (the fire pass's
+    premultiplied color) when given, clipped to [0, 1]."""
     alpha = torch.clamp(out.alpha, 0.0, 1.0)
     ratio = torch.clamp(ratio, 0.0, 1.0)
     is_shadow = torch.abs(ratio - 1.0) >= 0.01
     mult = 1.0 - (1.0 - ratio) * (1.0 - w_obj) * alpha
     mult = torch.where(is_shadow, mult, torch.ones_like(mult))
-    return torch.clamp(out.color * mult[..., None], 0.0, 1.0)
+    frame = out.color * mult[..., None]
+    if emission is not None:
+        frame = frame + emission
+    return torch.clamp(frame, 0.0, 1.0)
+
+
+def smoke_gaussians(inp: ClipInputs, frame_idx,
+                    smoke_cfg: Optional[SMK.SmokeConfig] = None):
+    """(smoke, fire) splat sets of this frame's volume: the density with
+    its display noise, at the domain's origin moved by the adaptive
+    offset.  ``smoke_cfg`` gives the noise (the defaults when None; pass
+    the simulation's own config to match its render)."""
+    if smoke_cfg is None:
+        smoke_cfg = SMK.SmokeConfig()
+    origin = inp.smoke_origin
+    if inp.smoke_origin_cells is not None:  # cells -> world units
+        cell = inp.smoke_extent / inp.smoke_density.shape[1]
+        origin = origin + (inp.smoke_origin_cells[frame_idx].to(torch.float32)
+                           * cell)
+    return SMK.smoke_fire_gaussians(
+        SMK.apply_density_noise(inp.smoke_density[frame_idx], frame_idx,
+                                smoke_cfg),
+        inp.smoke_temp[frame_idx], origin, inp.smoke_extent)
+
+
+def fire_config(config: RasterConfig) -> RasterConfig:
+    """The fire render's config: the frame's, with a duplicate budget of
+    at most ``FIRE_BUDGET``."""
+    return dataclasses.replace(config, dup_budget=min(config.dup_budget,
+                                                      FIRE_BUDGET))
 
 
 def render_edited_frame_fused(
@@ -278,19 +347,23 @@ def render_edited_frame_fused(
     frame_idx,
     config: RasterConfig,
     shadow_scale: int = 2,
-    smoke_cfg=None,
+    smoke_cfg: Optional[SMK.SmokeConfig] = None,
 ) -> torch.Tensor:
-    """One edited frame through one merged render of the background and
-    the shaded object surfels: per-splat depth order resolves their
-    occlusion.  The object weight comes from the hulls
-    (``shadow.hull_object_weight``), so the shadow ratio darkens only the
-    background's share of each pixel (``fused_composite``)."""
-    if smoke_cfg is not None:
-        raise NotImplementedError(
-            f"render_edited_frame_fused(smoke_cfg=...): {EFFECTS_SLICE}")
+    """One edited frame through one merged render of the background, the
+    shaded object surfels and (with a smoke volume) the smoke splats:
+    per-splat depth order resolves their occlusion.  The object weight
+    comes from the hulls (``shadow.hull_object_weight``), so the shadow
+    ratio darkens only the background's share of each pixel
+    (``fused_composite``).  The fire splats render alone, so that their
+    own alpha decides their occlusion, and their color (premultiplied
+    over black) is added to the frame."""
     cam = index_camera(inp.cams, frame_idx)
-    g_obj = shaded_object_gaussians(inp, frame_idx, cam)
-    out = rasterize_multi([inp.bg, g_obj], cam, config=config)
+    sets = [inp.bg, shaded_object_gaussians(inp, frame_idx, cam)]
+    g_fire = None
+    if inp.smoke_density is not None:
+        g_smoke, g_fire = smoke_gaussians(inp, frame_idx, smoke_cfg)
+        sets.append(g_smoke)
+    out = rasterize_multi(sets, cam, config=config)
 
     alpha = torch.clamp(out.alpha, 0.0, 1.0)
     scene_depth = pass_depth(out, alpha)
@@ -300,7 +373,9 @@ def render_edited_frame_fused(
     ratio = RSH.shadow_ratio_map(
         cam, out.depth, torch.clamp(alpha, min=1e-3), inp.light_dirs,
         inp.light_weights, planes_w, inp.hull_mask, scale=shadow_scale)
-    return fused_composite(out, ratio, w_obj)
+    fire = (None if g_fire is None else
+            rasterize(g_fire, cam, config=fire_config(config)).color)
+    return fused_composite(out, ratio, w_obj, fire)
 
 
 def render_clip(
@@ -309,14 +384,17 @@ def render_clip(
     config: RasterConfig,
     fused: bool = False,
     supersample: int = 1,
-    smoke_cfg=None,
+    smoke_cfg: Optional[SMK.SmokeConfig] = None,
 ) -> torch.Tensor:
     """(F, H, W, 3) edited frames.  ``supersample`` > 1 (a power of 2)
     renders at that many times the resolution and box-filters down by
-    halves."""
-    if smoke_cfg is not None:
-        raise NotImplementedError(f"render_clip(smoke_cfg=...): {EFFECTS_SLICE}")
-    frame_fn = render_edited_frame_fused if fused else render_edited_frame
+    halves.  The smoke and fire render on the fused path only, with
+    ``smoke_cfg``'s display noise."""
+    if fused:
+        frame_fn = lambda inp, i, config: render_edited_frame_fused(
+            inp, i, config, smoke_cfg=smoke_cfg)
+    else:
+        frame_fn = render_edited_frame
     if supersample > 1:
         c, f = inp.cams, supersample
         inp = dataclasses.replace(inp, cams=dataclasses.replace(

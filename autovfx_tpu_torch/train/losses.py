@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from autovfx_tpu_torch.utils.conv import conv2d
+
 # ---- photometric -----------------------------------------------------------
 
 
@@ -40,12 +42,13 @@ def _filter2d(img: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """(H, W, C) zero-padded "SAME" filter of each channel with the
     Gaussian window outer(g, g), applied as its two 1-D passes: the
     same sums as the JAX package's 2-D convolution in another order,
-    with 2k instead of k² products per pixel."""
+    with 2k instead of k² products per pixel.  Float32 on the card
+    whatever the TF32 flags say (``utils.conv``)."""
     g = torch.from_numpy(_gaussian_window_1d(window_size)).to(img.device)
     k = window_size // 2
     x = img.permute(2, 0, 1)[:, None]  # channels as the batch
-    x = F.conv2d(x, g.reshape(1, 1, 1, -1), padding=(0, k))
-    x = F.conv2d(x, g.reshape(1, 1, -1, 1), padding=(k, 0))
+    x = conv2d(x, g.reshape(1, 1, 1, -1), padding=(0, k))
+    x = conv2d(x, g.reshape(1, 1, -1, 1), padding=(k, 0))
     return x[:, 0].permute(1, 2, 0)
 
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's novel-view render and training on one NVIDIA GPU.
+"""Drive the PyTorch port's paths on one NVIDIA GPU: the novel view,
+training, the edited frame, its effects and a panorama.
 
 Run from the root of a checkout, with no arguments:
 
@@ -39,9 +40,28 @@ in (never JAX, never ``autovfx_tpu``) and
    profiler), the peak device memory, each backward kernel's device
    time beside its plain version's, and the forward kernels' at the
    training shapes;
-7. puts each kernel's time on each path beside its bound (``bound``:
-   the least time the card could take, from the bytes and operations
-   that path's inputs need, ``*_work``) and their ratio, the share.
+7. renders the edited clip of the JAX package's bench.py:344-422 (the
+   bench's cube drop simulated on the card, 50,000 surfels, 16 lights,
+   the fused frame over the 8 views) with its checks, times and stage
+   table;
+8. renders the effects clip of bench.py:424-481 on the same scene: a
+   96³ smoke/fire volume and the cube's surfels melting, the fire set
+   rendered alone and added; checks each frame's kernels on the merged
+   set and the fire set against their plain versions, the launch counts
+   (from the wrappers and from the profiler), no overflow, the smoke
+   and fire in view, no host sync in a frame, a smoke step or a liquid
+   substep; and times the smoke step, the melt solve, the frame and its
+   stages;
+9. runs the effects' small cases (smoke, hash, noise, melt, LPIPS) on
+   the card and on the CPU and holds them to each other;
+10. renders a panorama of the bench scene at face 512 (six launches of
+    each forward kernel, the first face checked against the plain
+    versions);
+11. times the physics substep and the edited clip's replay (last: the
+    profiler's sessions after its long one lose records);
+12. puts each kernel's time on each path beside its bound (``bound``:
+    the least time the card could take, from the bytes and operations
+    that path's inputs need, ``*_work``) and their ratio, the share.
 
 Any failed check raises, so the exit code is not 0.  The last three
 lines of output are a JSON object of the kernels (with each path's own
@@ -118,6 +138,26 @@ PHYSICS_PROFILED = 8  # substeps in the profiler's session
 # twentieth of that must change for the object to count as drawn
 # (checked over the scene's ground disc: see edited_frame_point)
 OBJECT_PIXELS_MIN = 2000
+
+# effects-frame operating point (the JAX package's bench.py:424-481): the
+# edited frame's scene, ring, drop and surfels with a 96³ smoke/fire
+# volume over the clip and the cube's surfels melting
+SMOKE_RES = 96
+SMOKE_ORIGIN, SMOKE_EXTENT = (-2.0, -2.0, -0.2), 4.0  # the domain, m
+SMOKE_TIMED = 8  # steps timed in one go
+# pixels that must differ by > 0.05 from the frame without the volume
+EFFECTS_PIXELS_MIN = 10
+# the card against the CPU on the effects' small cases, each at the
+# tolerance of its CPU test (tests/test_torch_smoke.py, test_torch_liquid,
+# test_torch_lpips): fields within FIELD_TOL of their largest on
+# FIELD_SHARE of their cells and all within FIELD_MAX_TOL, LPIPS to rtol
+PARITY_SMOKE_RES, PARITY_SMOKE_FRAMES, PARITY_MELT_RES = 24, 4, 32
+PARITY_ADAPTIVE_CENTER = (11.3, 12.7, 4.0)  # cells, off the shift's ties
+PARITY_LPIPS = 128  # image side
+FIELD_TOL, FIELD_SHARE, FIELD_MAX_TOL, LPIPS_RTOL = 1e-5, 0.999, 1e-3, 1e-4
+# the panorama of the bench scene, from inside its clutter
+PANORAMA_FACE = 512
+PANORAMA_CENTER = (0.0, 0.0, 0.6)
 
 # tolerances of the kernel checks
 MEAN2D_ATOL = 1e-4  # px, plus 2 float32 ulps of the coordinate
@@ -1343,7 +1383,9 @@ def ground_disc(g):
 
 def edit_inputs(P, g, cams):
     """The drop simulated on the card, then the clip's inputs: 50,000
-    surfels of the cube, the seed-0 32×64 envmap, 16 lights."""
+    surfels of the cube, the seed-0 32×64 envmap, 16 lights; and a
+    function that builds them again with effects keywords
+    (``smoke_traj``, ``melt``)."""
     from autovfx_tpu_torch.core.cameras import stack_cameras
     from autovfx_tpu_torch.physics import world
     from autovfx_tpu_torch.render import clip, meshsplat
@@ -1363,17 +1405,22 @@ def edit_inputs(P, g, cams):
                                          device=DEVICE)
     env = (0.4 + 0.6 * np.random.RandomState(0).rand(ENV_H, ENV_W, 3)
            ).astype(np.float32)
-    inp = clip.build_clip_inputs(
-        bg=g, cams=stack_cameras(cams),
-        objects=[{"scale": 1.0, "material": {"rgb": [0.8, 0.2, 0.2]}}],
-        surfels=[surf], traj_pos=traj_pos, traj_rot=traj_rot,
-        hull_shape=w.shape, env=env, num_lights=EDIT_LIGHTS, device=DEVICE)
+
+    def build(**effects):
+        return clip.build_clip_inputs(
+            bg=g, cams=stack_cameras(cams),
+            objects=[{"scale": 1.0, "material": {"rgb": [0.8, 0.2, 0.2]}}],
+            surfels=[surf], traj_pos=traj_pos, traj_rot=traj_rot,
+            hull_shape=w.shape, env=env, num_lights=EDIT_LIGHTS,
+            device=DEVICE, **effects)
+
+    inp = build()
     print(f"edit: the cube's COM z over {N_CAMS} frames "
           + ", ".join(f"{x:.3f}" for x in z) + f"; {EDIT_SURFELS} surfels, "
           f"{inp.light_dirs.shape[0]} lights after deduplication, "
           f"{inp.hull_planes.shape[1]} hull planes; two simulate runs "
           "bit-equal: ok")
-    return w, inp
+    return w, inp, build
 
 
 def edit_stages(P, inp, i, config):
@@ -1433,17 +1480,17 @@ def edit_stages(P, inp, i, config):
                 stages=stages, join_by_cat=join_by_cat)
 
 
-def edited_frame_point(P, card: str) -> tuple[dict, dict, dict]:
+def edited_frame_point(P, card: str) -> tuple[dict, dict, dict, dict]:
     """The edited frame at the operating point of the JAX package's
     bench.py:344-422 (config 4), through ``render_clip(fused=True)``."""
-    from autovfx_tpu_torch.physics import solver, world
+    from autovfx_tpu_torch.physics import solver
     from autovfx_tpu_torch.render import clip
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
     ops = P.ops
     cams = ring_cameras()
     g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
-    w, inp = edit_inputs(P, g, cams)
+    w, inp, build = edit_inputs(P, g, cams)
     worst = 0
     for i, cam in enumerate(cams):
         g_obj = clip.shaded_object_gaussians(inp, i, cam)
@@ -1600,7 +1647,543 @@ def edited_frame_point(P, card: str) -> tuple[dict, dict, dict]:
           "kernel 1 is its two launches (background and surfels)")
     print_bounds(card, perf, "edited_frame")
 
-    # physics and the whole replay
+    return launches, err, perf, dict(g=g, cams=cams, w=w, inp=inp,
+                                      build=build, config=config)
+
+
+# ---- effects-frame operating point -------------------------------------------
+
+
+def smoke_config(resolution: int | None = None):
+    """The JAX package's bench.py:430-433 smoke (``SMOKE_RES`` cells a
+    side unless given): fire on, a 30-frame dissolve."""
+    from autovfx_tpu_torch.render import smoke
+
+    return smoke.SmokeConfig(resolution=resolution or SMOKE_RES,
+                             dt=1.0 / 15.0,
+                             with_fire=True, dissolve_speed=30)
+
+
+def smoke_inflow(cfg, device):
+    """The bench's emitter: a sphere of 0.06 R cells at (R/2, R/2, R/6)."""
+    from autovfx_tpu_torch.render import smoke
+
+    r = cfg.resolution
+    return smoke.sphere_inflow(cfg, [r // 2, r // 2, r // 6], 0.06 * r,
+                               device=device)
+
+
+def fields_close(got, want, what: str, tol: float = FIELD_TOL,
+                 share: float = FIELD_SHARE) -> float:
+    """Each field of ``got`` against ``want`` (NamedTuples of tensors, on
+    any devices): within ``tol`` of the field's largest magnitude on at
+    least ``share`` of its elements, and all within ``FIELD_MAX_TOL`` of
+    it; returns the largest error over the largest magnitude."""
+    worst = 0.0
+    for name in want._fields:
+        a = getattr(got, name).double().cpu()
+        b = getattr(want, name).double().cpu()
+        check(a.shape == b.shape, f"{what}: {name} shape {a.shape}")
+        scale = max(b.abs().max().item(), 1e-12)
+        d = (a - b).abs() / scale
+        ok = (d <= tol).double().mean().item()
+        check(ok >= share and d.max().item() <= FIELD_MAX_TOL,
+              f"{what}: {name} off by {d.max().item():.3g} of its largest "
+              f"(within {tol:g} on {ok:.5f})")
+        worst = max(worst, d.max().item())
+    return worst
+
+
+def card_against_cpu(P) -> dict:
+    """The effects' small cases on the card and on the CPU, each held to
+    the tolerance of its CPU test: the smoke solve fixed and adaptive at
+    R = 24 for 4 frames (and the adaptive origins equal), the lattice
+    hash and the display noise bit-equal, ``MeltSim.run`` at R = 32, and
+    LPIPS on two 128×128 images.  Returns each case's largest error."""
+    from autovfx_tpu_torch.render import liquid, smoke
+    from autovfx_tpu_torch.utils import lpips
+
+    cfg = smoke_config(PARITY_SMOKE_RES)
+    err = {}
+    for adaptive in (False, True):
+        # the adaptive case's emitter sits off the bench's cell R/2: a
+        # plume centered there has its centroid on a rounding tie of the
+        # recentering shift (R/2 - (R-1)/2 = 0.5), which the order of a
+        # float sum decides
+        mask = lambda dev: (smoke.sphere_inflow(
+            cfg, PARITY_ADAPTIVE_CENTER, 0.06 * cfg.resolution, device=dev)
+            if adaptive else smoke_inflow(cfg, dev))
+        out = {dev: smoke.simulate_smoke(cfg, mask(dev), PARITY_SMOKE_FRAMES,
+                                         adaptive=adaptive)
+               for dev in (DEVICE, "cpu")}
+        got, want = out[DEVICE], out["cpu"]
+        if adaptive:
+            check(torch.equal(got[1].cpu(), want[1]),
+                  f"adaptive smoke origins {got[1].tolist()} on the card, "
+                  f"{want[1].tolist()} on the CPU")
+            got, want = got[0], want[0]
+        name = "smoke adaptive" if adaptive else "smoke fixed"
+        err[name] = fields_close(got, want, name)
+    rng = np.random.default_rng(7)
+    ix, iy, iz = (rng.integers(-5000, 5000, 100_000) for _ in range(3))
+    hashes = [smoke._lattice_hash(*(torch.from_numpy(a).to(dev)
+                                    for a in (ix, iy, iz)), 17).cpu()
+              for dev in (DEVICE, "cpu")]
+    check(torch.equal(*hashes), "the lattice hash differs on the card")
+    dens = want.density[-1]
+    for frame in (0, 2, 7):
+        noise = [smoke.apply_density_noise(dens.to(dev), frame, cfg).cpu()
+                 for dev in (DEVICE, "cpu")]
+        check(torch.equal(*noise),
+              f"apply_density_noise frame {frame} differs on the card")
+    pts = np.random.RandomState(0).rand(400, 3).astype(np.float32) * 0.5
+    pts[:, :2] -= 0.25
+    lcfg = liquid.LiquidConfig(resolution=PARITY_MELT_RES, substeps=4,
+                               viscosity=5e-4)
+    prog = np.concatenate([np.linspace(0.0, 1.0, 6), np.ones(4)])
+    got, want = (liquid.MeltSim(pts, cfg=lcfg, device=dev).run(prog)
+                 for dev in (DEVICE, "cpu"))
+    rel = lambda a, b: ((a.cpu() - b).abs().max()
+                        / b.abs().max().clamp(min=1e-12)).item()
+    melt = {k: rel(getattr(got, k), getattr(want, k))
+            for k in ("h", "eta", "volume", "tracer_pos")}
+    melt["tracer_norm"] = (got.tracer_norm.cpu()
+                           - want.tracer_norm).abs().max().item()
+    check(max(melt[k] for k in ("h", "eta", "volume")) <= 1e-6
+          and melt["tracer_pos"] <= 1e-4 and melt["tracer_norm"] <= 1e-4
+          and torch.equal(got.tracer_fluid.cpu(), want.tracer_fluid),
+          f"MeltSim.run on the card against the CPU: {melt}")
+    err["melt"] = max(melt.values())
+    imgs = [torch.from_numpy(rng.random((PARITY_LPIPS, PARITY_LPIPS, 3),
+                                        np.float32)) for _ in range(2)]
+    d = [lpips.lpips_distance(*(x.to(dev) for x in imgs)).item()
+         for dev in (DEVICE, "cpu")]
+    check(abs(d[0] - d[1]) <= LPIPS_RTOL * abs(d[1]),
+          f"LPIPS {d[0]} on the card, {d[1]} on the CPU")
+    err["lpips"] = abs(d[0] - d[1]) / abs(d[1])
+    print("card against CPU: smoke fixed and adaptive (R = "
+          f"{PARITY_SMOKE_RES}, {PARITY_SMOKE_FRAMES} frames) within "
+          f"{err['smoke fixed']:.3g} and {err['smoke adaptive']:.3g} of the "
+          "largest, origins equal; the lattice hash and the display noise "
+          f"bit-equal; MeltSim (R = {PARITY_MELT_RES}) {melt}; LPIPS "
+          f"{PARITY_LPIPS}x{PARITY_LPIPS} {d[0]:.6f} / {d[1]:.6f}: ok")
+    return err
+
+
+def effects_inputs(P, card: str, inp, build):
+    """The bench's effects (bench.py:424-481) on the card: the 96³ smoke
+    volume of ``N_CAMS`` frames, the cube's surfels (object-local, as the
+    bench passes them) melting linearly over the clip; the clip's inputs
+    with both, and their times."""
+    from autovfx_tpu_torch.render import liquid, smoke
+
+    cfg = smoke_config()
+    mask = smoke_inflow(cfg, DEVICE)
+    states = smoke.simulate_smoke(cfg, mask, N_CAMS)
+    for x in states:
+        check(bool(torch.isfinite(x).all()), "smoke: not finite")
+    check(states.density[-1].max().item() > 0.5, "smoke: no density")
+    prog = np.clip(np.arange(N_CAMS, dtype=np.float32) / max(N_CAMS - 1, 1),
+                   0.0, 1.0)
+    sim = liquid.MeltSim(inp.surf_points.cpu().numpy(), device=DEVICE)
+    mf = sim.run(prog)
+    for x in mf:
+        check(bool(torch.isfinite(x).all()), "melt: not finite")
+    check(mf.tracer_fluid[-1].mean().item() == 1.0, "melt: not all melted")
+    inp_fx = build(
+        smoke_traj=(states, np.array(SMOKE_ORIGIN, np.float32), SMOKE_EXTENT,
+                    cfg),
+        melt=dict(pos=mf.tracer_pos, norm=mf.tracer_norm,
+                  mask=np.ones(inp.surf_points.shape[0], bool)))
+    step_ms = cuda_ms(lambda: smoke.simulate_smoke(cfg, mask, SMOKE_TIMED),
+                      3) / SMOKE_TIMED
+    step_busy = device_ms(lambda: smoke.step(states_at(states, 3), mask, cfg),
+                          KERNEL_REPS, max_lost=1)
+    melt_ms = cuda_ms(lambda: sim.run(prog), 3)
+    melt_busy = device_ms(lambda: sim.run(prog), 1, max_lost=1)
+    lcfg = sim.cfg
+    print(f"[{card}] smoke {SMOKE_RES}^3: {step_ms:.3f} ms a step (CUDA "
+          f"events over {SMOKE_TIMED} steps), device busy {step_busy:.3f} ms "
+          f"a step (profiler); MeltSim.run (R = {lcfg.resolution}, "
+          f"{N_CAMS} frames x {lcfg.substeps} substeps): {melt_ms:.3f} ms "
+          f"(CUDA events), device busy {melt_busy:.3f} ms; the last frame's "
+          f"smoke mass {states.density[-1].sum().item():.1f}, melt volume "
+          f"{mf.volume[-1].item():.5f} of {sim.volume:.5f}")
+    return cfg, mask, sim, inp_fx
+
+
+def states_at(states, f: int):
+    """Frame ``f`` of stacked smoke states."""
+    return type(states)(*(x[f] for x in states))
+
+
+def effects_stages(P, inp, i, config, cfg):
+    """The effects frame's stages on frame ``i``, as functions of nothing,
+    each from the outputs of the stages before it (made once here)."""
+    from autovfx_tpu_torch.core.cameras import index_camera
+    from autovfx_tpu_torch.ops import binning, blend_cuda, preprocess_cuda
+    from autovfx_tpu_torch.ops.projection import Splats2D, empty_splats
+    from autovfx_tpu_torch.ops.rasterize import (RenderOutput, rasterize,
+                                                 rasterize_multi)
+    from autovfx_tpu_torch.render import clip, shadow
+
+    cam = index_camera(inp.cams, i)
+    g_obj = clip.shaded_object_gaussians(inp, i, cam)
+    g_smoke, g_fire = clip.smoke_gaussians(inp, i, cfg)
+    sets = [inp.bg, g_obj, g_smoke]
+    buf = empty_splats(sum(x.capacity for x in sets), DEVICE)
+    off = 0
+    for x in sets:
+        preprocess_cuda.preprocess(x, cam, tile=TILE, out=Splats2D(
+            *(f[off:off + x.capacity] for f in buf)))
+        off += x.capacity
+    binned = binning.bin_splats(buf, cam.width, cam.height, config.dup_budget,
+                                tile=TILE)
+    color, depth, alpha = blend_cuda.blend(binned, buf, cam.width, cam.height,
+                                           TILE)
+    out = RenderOutput(color, depth, alpha, buf.radius, binned.overflow)
+    fire_cfg = clip.fire_config(config)
+    fire_s = preprocess_cuda.preprocess(g_fire, cam, tile=TILE)
+    fire_b = binning.bin_splats(fire_s, cam.width, cam.height,
+                                fire_cfg.dup_budget, tile=TILE)
+    fire_imgs = blend_cuda.blend(fire_b, fire_s, cam.width, cam.height, TILE)
+    a = alpha.clamp(0.0, 1.0)
+    planes = clip.world_hull_planes_at(inp, i)
+    w_obj = shadow.hull_object_weight(cam, clip.pass_depth(out, a), planes,
+                                      inp.hull_mask, pad=clip.object_pad(inp))
+    ratio = shadow.shadow_ratio_map(
+        cam, depth, a.clamp(min=1e-3), inp.light_dirs, inp.light_weights,
+        planes, inp.hull_mask, scale=SHADOW_SCALE)
+    stages = {
+        "noise + splat conversion": lambda: clip.smoke_gaussians(inp, i, cfg),
+        "object shading": lambda: clip.shaded_object_gaussians(inp, i, cam),
+        "merged render": lambda: rasterize_multi(sets, cam, config=config),
+        "fire render": lambda: rasterize(g_fire, cam, config=fire_cfg),
+        "hull weight": lambda: shadow.hull_object_weight(
+            cam, clip.pass_depth(out, a), clip.world_hull_planes_at(inp, i),
+            inp.hull_mask, pad=clip.object_pad(inp)),
+        "shadow ratio": lambda: shadow.shadow_ratio_map(
+            cam, depth, a.clamp(min=1e-3), inp.light_dirs, inp.light_weights,
+            planes, inp.hull_mask, scale=SHADOW_SCALE),
+        "composite": lambda: clip.fused_composite(out, ratio, w_obj,
+                                                  fire_imgs[0]),
+    }
+    return dict(cam=cam, sets=sets, g_fire=g_fire, splats=buf, binned=binned,
+                images=(color, depth, alpha), fire_splats=fire_s,
+                fire_binned=fire_b, fire_images=fire_imgs, stages=stages)
+
+
+def effects_visible(P, inp, g, config, cfg, frame: int) -> dict:
+    """On the scene ``g``: the pixels of frame ``frame`` that differ by
+    > 0.05 between the effects frame and the same frame without the
+    volume (smoke and fire), the energy the effects add, and the pixels
+    the smoke set alone moves in the merged render."""
+    from autovfx_tpu_torch.core.cameras import index_camera
+    from autovfx_tpu_torch.render import clip
+
+    inp = dataclasses.replace(inp, bg=g)
+    fx = clip.render_edited_frame_fused(inp, frame, config,
+                                        shadow_scale=SHADOW_SCALE,
+                                        smoke_cfg=cfg)
+    plain = clip.render_edited_frame_fused(
+        dataclasses.replace(inp, smoke_density=None), frame, config,
+        shadow_scale=SHADOW_SCALE)
+    cam = index_camera(inp.cams, frame)
+    g_obj = clip.shaded_object_gaussians(inp, frame, cam)
+    g_smoke, _ = clip.smoke_gaussians(inp, frame, cfg)
+    with_smoke = P.rasterize_multi([g, g_obj, g_smoke], cam, config=config)
+    no_smoke = P.rasterize_multi([g, g_obj], cam, config=config)
+    check(not bool(with_smoke.overflow), "effects visibility: overflow")
+    return {
+        "changed": int(((fx - plain).abs().amax(-1) > 0.05).sum()),
+        "energy": (fx.double().sum() - plain.double().sum()).item(),
+        "smoke_changed": int(((with_smoke.color - no_smoke.color).abs()
+                              .amax(-1) > 0.05).sum()),
+        "finite": bool(torch.isfinite(fx).all()),
+    }
+
+
+def fire_tiles(binned, rng, n: int) -> torch.Tensor:
+    """Up to ``n`` seeded tiles that hold fire duplicates."""
+    r = binned.tile_range
+    live = torch.nonzero(r[:, 1] > r[:, 0]).flatten().cpu().numpy()
+    pick = rng.choice(live, min(n, len(live)), replace=False)
+    return torch.from_numpy(pick).to(binned.gid.device)
+
+
+def effects_frame_point(P, card: str, edit: dict):
+    """The effects frame at the operating point of the JAX package's
+    bench.py:424-481 on the edited frame's scene, ring, drop and surfels,
+    through ``render_clip(fused=True, smoke_cfg=...)``."""
+    from autovfx_tpu_torch.render import clip, liquid, smoke
+
+    ops = P.ops
+    g, cams, inp = edit["g"], edit["cams"], edit["inp"]
+    cfg, mask, sim, inp_fx = effects_inputs(P, card, inp, edit["build"])
+    worst = fire_worst = 0
+    live = []
+    for i, cam in enumerate(cams):
+        g_obj = clip.shaded_object_gaussians(inp_fx, i, cam)
+        g_smoke, g_fire = clip.smoke_gaussians(inp_fx, i, cfg)
+        s = ops.rasterize.preprocess_sets([g, g_obj, g_smoke], cam,
+                                          P.RasterConfig(tile=TILE))
+        worst = max(worst, int(ops.binning.required_budget(s)))
+        fire_worst = max(fire_worst, int(ops.binning.required_budget(
+            ops.preprocess_cuda.preprocess(g_fire, cam, tile=TILE))))
+        live.append((int(g_smoke.active.sum()), int(g_fire.active.sum())))
+    budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
+    config = P.RasterConfig(dup_budget=budget, tile=TILE)
+    fire_budget = clip.fire_config(config).dup_budget
+    check(fire_worst <= fire_budget,
+          f"the fire render needs {fire_worst} duplicates, over its "
+          f"budget {fire_budget}")
+    print(f"effects duplicates: worst merged view with smoke {worst}, budget "
+          f"{budget}; fire worst {fire_worst}, budget {fire_budget}; live "
+          f"(smoke, fire) splats a frame {live} of "
+          f"{g_smoke.capacity} slots")
+
+    # the main path, counted
+    sync()
+    reset_counters(ops)
+    frames = clip.render_clip(inp_fx, N_CAMS, config, fused=True,
+                              smoke_cfg=cfg)
+    sync()
+    launches = counters(ops)
+    check_launches(launches, {"preprocess": 4 * N_CAMS,
+                              "duplicate_with_keys": 2 * N_CAMS,
+                              "blend_fwd": 2 * N_CAMS},
+                   f"{N_CAMS} effects frames")
+    check(frames.shape == (N_CAMS, HEIGHT, WIDTH, 3), "effects frames: shape")
+    check(bool(torch.isfinite(frames).all()), "effects frames: not finite")
+    check(frames.min().item() >= 0.0 and frames.max().item() <= 1.0,
+          "effects frames: outside [0, 1]")
+
+    # each frame's kernels against their plain versions, on the merged set
+    # with smoke and on the fire set; neither render overflows
+    tx, ty = ops.projection.num_tiles(WIDTH, HEIGHT, TILE)
+    rng = np.random.default_rng(6)
+    err = {}
+    for i in range(N_CAMS):
+        st = effects_stages(P, inp_fx, i, config, cfg)
+        what = f"effects frame {i}"
+        check(not bool(st["binned"].overflow), f"{what}: merged overflow")
+        check(not bool(st["fire_binned"].overflow), f"{what}: fire overflow")
+        tiles = torch.from_numpy(
+            rng.choice(tx * ty, CHECK_TILES, replace=False)).to(DEVICE)
+        e3 = check_blend(P, st["binned"], st["splats"], st["images"], tiles,
+                         WIDTH, HEIGHT, TILE, f"{what} merged")
+        e3f = check_blend(P, st["fire_binned"], st["fire_splats"],
+                          st["fire_images"],
+                          fire_tiles(st["fire_binned"], rng, CHECK_TILES),
+                          WIDTH, HEIGHT, TILE, f"{what} fire")
+        err["blend_fwd"] = max(err.get("blend_fwd", 0.0), e3, e3f)
+        sync()
+    cam, g_smoke, g_fire = st["cam"], st["sets"][2], st["g_fire"]
+    err["preprocess"] = max(
+        check_preprocess(ops.preprocess_cuda.preprocess_kernel(x, cam,
+                                                               tile=TILE),
+                         ops.projection.preprocess(x, cam, tile=TILE),
+                         f"{what} {name}")
+        for name, x in (("smoke", g_smoke), ("fire", g_fire)))
+    err["duplicate_with_keys"] = max(
+        check_duplicates(P, st["splats"], tx, tx * ty, budget,
+                         f"{what} merged"),
+        check_duplicates(P, st["fire_splats"], tx, tx * ty, fire_budget,
+                         f"{what} fire"))
+
+    # the smoke and fire in view: the plume rises inside the scene's
+    # clutter, so the smoke alone is also checked over the ground disc
+    last = N_CAMS - 1
+    seen = {name: effects_visible(P, inp_fx, scene, config, cfg, last)
+            for name, scene in (("bench scene", g),
+                                ("ground disc", ground_disc(g)))}
+    for name, v in seen.items():
+        check(v["finite"], f"effects frame over the {name}: not finite")
+    bench, disc = seen["bench scene"], seen["ground disc"]
+    check(bench["changed"] > EFFECTS_PIXELS_MIN and bench["energy"] > 0,
+          f"effects frame {last} over the bench scene: {bench}")
+    check(disc["changed"] > EFFECTS_PIXELS_MIN
+          and disc["smoke_changed"] > EFFECTS_PIXELS_MIN
+          and disc["energy"] > 0,
+          f"effects frame {last} over the ground disc: {disc}")
+    print(f"effects frames: {launches}; frame {last}: " + "; ".join(
+        f"over the {name}: {v['changed']} pixels differ from the frame "
+        f"without the volume by > 0.05, the effects add {v['energy']:.1f} "
+        f"of color, the smoke set alone moves {v['smoke_changed']} pixels "
+        "of the merged render" for name, v in seen.items())
+        + f"; checks at {N_SPLATS} + {EDIT_SURFELS} + {g_smoke.capacity} "
+        f"slots {WIDTH}x{HEIGHT} tile {TILE}: kernel 1 on the smoke and "
+        f"fire sets, kernel 2 on the merged and fire sets, kernel 3 on "
+        f"{CHECK_TILES} tiles/frame of each against the plain versions: ok")
+
+    # no host syncs, then times
+    def frame(i):
+        return clip.render_edited_frame_fused(inp_fx, i % N_CAMS, config,
+                                              shadow_scale=SHADOW_SCALE,
+                                              smoke_cfg=cfg)
+
+    for i in range(WARMUP):
+        frame(i)
+    state = states_at(smoke.simulate_smoke(cfg, mask, 2), 1)
+    h = torch.rand(sim.cfg.resolution, sim.cfg.resolution, device=DEVICE)
+    txy = torch.rand(1000, 2, device=DEVICE) * (sim.cfg.resolution - 1)
+
+    def liquid_substep():
+        h2, u = liquid._substep(h * 0.01, sim.bed, sim.footprint * 1e-5,
+                                sim.cell, sim.cfg)
+        return h2, liquid._bilinear(u[..., 0], txy)
+
+    no_syncs(lambda: frame(N_CAMS - 1), "the effects frame")
+    no_syncs(lambda: smoke.simulate_smoke(cfg, mask, 1, adaptive=True),
+             "an adaptive smoke step")
+    no_syncs(lambda: smoke.step(state, mask, cfg), "a smoke step")
+    no_syncs(liquid_substep, "a liquid substep")
+    print("the effects frame, an adaptive and a fixed smoke step and a "
+          "liquid substep read nothing back from the card (sync debug "
+          "mode): ok")
+    names = [e.name() for e in profiled(lambda: frame(N_CAMS - 1), 1)]
+    per_frame = {k: sum(k in x for x in names)
+                 for k in ("preprocess_kernel", "duplicate_kernel",
+                           "blend_kernel")}
+    check(per_frame == {"preprocess_kernel": 4, "duplicate_kernel": 2,
+                        "blend_kernel": 2},
+          f"the profiler's kernel records of one effects frame: {per_frame}")
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = [cuda_ms(lambda i=i: frame(i), 1) for i in range(TIMED)]
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(frame_ms)
+    print(f"[{card}] effects frame {WIDTH}x{HEIGHT} tile {TILE} (bench "
+          f"scene): median {median:.3f} ms over {TIMED} frames (min "
+          f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}); "
+          f"{1000.0 / median:.1f} frames/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; the profiler's kernel records of one "
+          f"frame: {per_frame} of {len(names)}")
+    run = lambda: [frame(i) for i in range(TIMED)]
+    streamed = cuda_ms(run, 3) / TIMED
+    records = profiled(run, 1)
+    busy = sum(e.duration_ns() for e in records) / 1e6 / TIMED
+    print(f"[{card}] {TIMED} effects frames back to back: {streamed:.3f} "
+          f"ms/frame, device busy {busy:.3f} ms/frame, idle share "
+          f"{1.0 - busy / streamed:.3f}; {len(records) / TIMED:.0f} device "
+          "records (kernels, copies) a frame")
+    stage_ms = {k: device_ms(fn, KERNEL_REPS, max_lost=1)
+                for k, fn in st["stages"].items()}
+    print(f"[{card}] effects frame device time by stage (ms, profiler, last "
+          "frame): " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"; sum {sum(stage_ms.values()):.3f}")
+
+    # kernels 1-3 on the last frame's shapes: kernel 1 is its four
+    # launches, kernels 2 and 3 their two (merged set, fire set)
+    s, b, fs, fb = (st["splats"], st["binned"], st["fire_splats"],
+                    st["fire_binned"])
+    k1 = lambda gg: (lambda: ops.preprocess_cuda.preprocess_kernel(
+        gg, cam, tile=TILE))
+
+    def k2(x, bud):
+        counts = x.tiles_touched
+        args = (counts, torch.cumsum(counts, 0) - counts, x.tile_min,
+                x.tile_max, x.depth, tx, tx * ty, bud)
+        return lambda: ops.fill_cuda.duplicate_with_keys_kernel(*args)
+
+    k3 = lambda bb, xx: (lambda: ops.blend_cuda.blend_kernel(
+        bb, xx, WIDTH, HEIGHT, TILE))
+    all_sets = st["sets"] + [g_fire]
+    ms = {"preprocess": sum(device_ms(k1(x), KERNEL_REPS, "preprocess_kernel")
+                            for x in all_sets),
+          "duplicate_with_keys": device_ms(k2(s, budget), KERNEL_REPS,
+                                           "duplicate_kernel")
+          + device_ms(k2(fs, fire_budget), KERNEL_REPS, "duplicate_kernel"),
+          "blend_fwd": device_ms(k3(b, s), KERNEL_REPS, "blend_kernel")
+          + device_ms(k3(fb, fs), KERNEL_REPS, "blend_kernel")}
+    clock = sm_clock_mhz()
+    k_rest = g.sh_rest.shape[1]
+    work = {"preprocess": tuple(map(sum, zip(*(
+        preprocess_work(x.capacity, x.sh_rest.shape[1]) for x in all_sets))))}
+    pairs = {}
+    dup, blend = [], []
+    for name, (bb, xx, bud) in (("merged", (b, s, budget)),
+                                ("fire", (fb, fs, fire_budget))):
+        n_live = int((xx.tiles_touched > 0).sum())
+        _, bst = ops.blend_cuda.blend_train_kernel(bb, xx, WIDTH, HEIGHT,
+                                                   TILE)
+        pairs[name] = pair_counts(P, bb, xx, bst.n_contrib, WIDTH, HEIGHT,
+                                  TILE)
+        dup.append(duplicate_work(xx.radius.shape[0], n_live, bud))
+        blend.append(blend_work(pairs[name], n_live))
+    work["duplicate_with_keys"] = tuple(map(sum, zip(*dup)))
+    work["blend_fwd"] = tuple(map(sum, zip(*blend)))
+    perf = {k: {"effects_frame": timed_bound(ms[k], work[k], clock)}
+            for k in work}
+    print(f"[{card}] last effects frame: merged {pairs['merged']}; fire "
+          f"{pairs['fire']}; SH rest {k_rest}; kernel 1 is its four launches "
+          "(background, surfels, smoke, fire), kernels 2 and 3 their two "
+          "(merged set, fire set)")
+    print_bounds(card, perf, "effects_frame")
+    return launches, err, perf
+
+
+# ---- panorama -------------------------------------------------------------------
+
+
+def panorama_point(P, card: str, g) -> tuple[dict, dict]:
+    """``render_panorama`` of the bench scene from inside its clutter at
+    face 512: six faces through kernels 1-3, counted; the first face's
+    kernels against their plain versions."""
+    from autovfx_tpu_torch.render import panorama
+
+    ops = P.ops
+    cams = panorama.face_cameras(PANORAMA_CENTER, PANORAMA_FACE, DEVICE)
+    worst = max(int(ops.binning.required_budget(
+        ops.preprocess_cuda.preprocess(g, c, tile=TILE))) for c in cams)
+    budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
+    config = P.RasterConfig(dup_budget=budget, tile=TILE)
+    sync()
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    pano = panorama.render_panorama(g, PANORAMA_CENTER,
+                                    face_size=PANORAMA_FACE,
+                                    out_height=PANORAMA_FACE, config=config)
+    wall = time.perf_counter() - t0
+    launches = counters(ops)
+    n = len(panorama.FACES)
+    check_launches(launches, {"preprocess": n, "duplicate_with_keys": n,
+                              "blend_fwd": n}, "the panorama")
+    check(pano.shape == (PANORAMA_FACE, 2 * PANORAMA_FACE, 3)
+          and np.isfinite(pano).all(), "panorama: shape or not finite")
+    seen = float((pano > 0.05).mean())
+    check(seen > 0.3, f"panorama: {seen:.3f} of its texels see splats")
+    cam = cams[0]
+    what = f"panorama face 0 ({PANORAMA_FACE}^2)"
+    s = ops.preprocess_cuda.preprocess_kernel(g, cam, tile=TILE)
+    err = {"preprocess": check_preprocess(
+        s, ops.projection.preprocess(g, cam, tile=TILE), what)}
+    tx, ty = ops.projection.num_tiles(PANORAMA_FACE, PANORAMA_FACE, TILE)
+    err["duplicate_with_keys"] = check_duplicates(P, s, tx, tx * ty, budget,
+                                                  what)
+    b = ops.binning.bin_splats(s, PANORAMA_FACE, PANORAMA_FACE, budget,
+                               tile=TILE)
+    check(not bool(b.overflow), f"{what}: overflow")
+    imgs = ops.blend_cuda.blend_kernel(b, s, PANORAMA_FACE, PANORAMA_FACE,
+                                       TILE)
+    tiles = torch.from_numpy(np.random.default_rng(8).choice(
+        tx * ty, min(CHECK_TILES, tx * ty), replace=False)).to(DEVICE)
+    err["blend_fwd"] = check_blend(P, b, s, imgs, tiles, PANORAMA_FACE,
+                                   PANORAMA_FACE, TILE, what)
+    print(f"[{card}] panorama of the bench scene from {PANORAMA_CENTER} at "
+          f"face {PANORAMA_FACE}: {wall * 1000.0:.1f} ms wall (six faces + "
+          f"the host resample), budget {budget}, {seen:.3f} of its texels "
+          f"see splats, {launches}; face 0's kernels against their plain "
+          "versions: ok")
+    return launches, err
+
+
+def physics_point(P, card: str, w, inp, config) -> None:
+    """Physics substeps and the whole replay (simulate + render_clip) of
+    the edited frame's clip.  Run last: the profiler's sessions after
+    its long one lose their first records."""
+    from autovfx_tpu_torch.physics import solver, world
+    from autovfx_tpu_torch.render import clip
+
     state = w.state
     for _ in range(WARMUP):
         state, _ = solver.substep(w.shape, state, w.params, w.grid, w.cfg)
@@ -1608,8 +2191,8 @@ def edited_frame_point(P, card: str) -> tuple[dict, dict, dict]:
     substeps = lambda: [solver.substep(w.shape, w.state, w.params, w.grid,
                                        w.cfg) for _ in range(PHYSICS_SUBSTEPS)]
     sub_ms = cuda_ms(substeps, 3)
-    # last, and short: the profiler's sessions after a long one lose
-    # their first records
+    # short: the profiler's sessions after a long one lose their first
+    # records
     records = profiled(lambda: [solver.substep(w.shape, w.state, w.params,
                                                w.grid, w.cfg)
                                 for _ in range(PHYSICS_PROFILED)], 1)
@@ -1630,8 +2213,6 @@ def edited_frame_point(P, card: str) -> tuple[dict, dict, dict]:
           f"{len(records) / PHYSICS_PROFILED:.0f} device records a substep, "
           f"profiler); replay (simulate {N_CAMS} frames + render_clip) "
           f"{replay_s * 1000.0:.1f} ms wall")
-
-    return launches, err, perf
 
 
 def main() -> None:
@@ -1654,27 +2235,38 @@ def main() -> None:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
     print_ptxas((lib.parent / "nvcc.log").read_text())
     _build.load_library()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the package needs no global precision setting: its convolutions run
+    # in float32 whatever cuDNN's TF32 flag says (utils/conv.py)
+    print(f"TF32 flags (PyTorch's defaults, left as they are): cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}, matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
 
     small_checks(P)
     view_launches, err, ms, perf = operating_point(P, card)
     err.update(small_grad_checks(P))
     train_launches, train_err, (train_ms, train_perf) = training_point(
         P, card)
-    edit_launches, edit_err, edit_perf = edited_frame_point(P, card)
-    for k, e in list(train_err.items()) + list(edit_err.items()):
-        err[k] = max(err.get(k, 0.0), e)
+    edit_launches, edit_err, edit_perf, edit = edited_frame_point(P, card)
+    fx_launches, fx_err, fx_perf = effects_frame_point(P, card, edit)
+    card_against_cpu(P)
+    pano_launches, pano_err = panorama_point(P, card, edit["g"])
+    physics_point(P, card, edit["w"], edit["inp"], edit["config"])
+    for part in (train_err, edit_err, fx_err, pano_err):
+        for k, e in part.items():
+            err[k] = max(err.get(k, 0.0), e)
     ms.update(train_ms)
-    for k, x in list(train_perf.items()) + list(edit_perf.items()):
-        perf.setdefault(k, {}).update(x)
+    for part in (train_perf, edit_perf, fx_perf):
+        for k, x in part.items():
+            perf.setdefault(k, {}).update(x)
     # each path's own counts; kernel 3 runs its training variant there
     train_launches["blend_fwd"] = train_launches.pop("blend_fwd_train")
     kernels = []
     for k in KERNELS:
         by_path = {"novel_view": view_launches[k],
                    "training": train_launches[k],
-                   "edited_frame": edit_launches[k]}
+                   "edited_frame": edit_launches[k],
+                   "effects_frame": fx_launches[k],
+                   "panorama": pano_launches[k]}
         main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],

@@ -15,9 +15,11 @@ file does.  Budgets:
 - the port's fused frame against its own multi-pass frame: the bounds of
   ``tests/test_clip_fused.py:93-106``;
 - ``render_clip`` of two frames, plain and 2× supersampled: shape,
-  finite, within [0, 1]; the effects keywords raise.
+  finite, within [0, 1]; malformed effects inputs raise.
 
-The multi-pass frame against JAX's is ``tests/test_torch_clip_multipass.py``.
+The multi-pass frame against JAX's is ``tests/test_torch_clip_multipass.py``;
+the frame with smoke, fire and melt tracers is
+``tests/test_torch_effects_clip.py``.
 """
 import os
 import sys
@@ -229,16 +231,26 @@ def test_build_clip_inputs_matches_jax(clip):
 
 
 def test_effects_keywords_raise(clip):
-    _, _, pin, pcfg = clip
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CL.build_clip_inputs(pin.bg, pin.cams, [], [], None, None, None,
-                             np.ones((4, 8, 3), np.float32),
-                             smoke_traj=(None,), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CL.build_clip_inputs(pin.bg, pin.cams, [], [], None, None, None,
-                             np.ones((4, 8, 3), np.float32),
-                             melt={"pos": None}, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CL.render_edited_frame_fused(pin, 0, pcfg, smoke_cfg=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CL.render_clip(pin, 1, pcfg, fused=True, smoke_cfg=object())
+    """The effects keywords refuse malformed inputs: a ``smoke_traj`` that
+    is neither (states, origin, extent, cfg) nor that with the origin
+    cells, and a ``melt`` dict without its tracers' normals."""
+    from autovfx_tpu_torch.physics.shapes import build_hulls
+
+    _, _, pin, _ = clip
+    corners = np.array([[x, y, z] for x in (-0.2, 0.2) for y in (-0.2, 0.2)
+                        for z in (-0.2, 0.2)], np.float32)
+    hull, _, _, _ = build_hulls([corners], device="cpu")
+    surf = {"points": corners, "normals": corners, "colors": corners,
+            "radius": 0.01}
+    args = (pin.bg, pin.cams, [{"scale": 1.0}], [surf],
+            np.zeros((1, 1, 3), np.float32),
+            np.eye(3, dtype=np.float32)[None, None], hull,
+            np.ones((4, 8, 3), np.float32))
+    with pytest.raises(ValueError, match="smoke_traj"):
+        CL.build_clip_inputs(*args, num_lights=2, smoke_traj=(None,),
+                             device="cpu")
+    with pytest.raises(KeyError, match="norm"):
+        CL.build_clip_inputs(*args, num_lights=2,
+                             melt={"pos": np.zeros((1, 8, 3), np.float32),
+                                   "mask": np.ones(8, bool)},
+                             device="cpu")

@@ -467,3 +467,237 @@ def test_physics_on_the_card_matches_the_cpu(dev):
     assert np.array_equal(p1, p2) and np.array_equal(q1, q2)
     _, pc, _ = world.simulate(cpu, 8)
     assert np.abs(p1 - pc).max() <= 1e-3
+
+
+# ---- float32 convolutions under PyTorch's default TF32 flags -----------------
+# These tests set no flag: cuDNN may run float32 convolutions in TF32 by
+# default, and the package's own must not.
+
+
+def _flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def test_compute_loss_under_default_flags_matches_cpu(scene):
+    """``compute_loss`` on the card against the CPU's photometric loss of
+    the image the card rendered, at the JAX loss tests' rtol 1e-5; and
+    the loss's image gradient (the SSIM window's convolutions backward)
+    within 1e-5 of its largest.  The flags are left as they were."""
+    from autovfx_tpu_torch.train import losses as L
+    from autovfx_tpu_torch.train import trainer as T
+
+    g, cam = scene
+    before = _flags()
+    cfg = T.TrainConfig(raster=P.RasterConfig(dup_budget=1 << 16, tile=16))
+    target = torch.from_numpy(
+        np.random.default_rng(11).random((H, W, 3), np.float32))
+    loss, _ = T.compute_loss(g, torch.zeros((g.capacity, 2), device="cuda"),
+                             cam, target.cuda(), cfg)
+    image = P.rasterize(g, cam, bg=torch.zeros(3, device="cuda"),
+                        config=cfg.raster).color
+    want = L.photometric_loss(image.cpu(), target, cfg.lambda_dssim)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=0)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        x = image.detach().to(dev).requires_grad_(True)
+        L.photometric_loss(x, target.to(dev), cfg.lambda_dssim).backward()
+        grads.append(x.grad.cpu())
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert err < 1e-5, err
+    assert _flags() == before
+
+
+def test_lpips_under_default_flags_matches_cpu():
+    """``lpips_distance`` of two 128×128 images on the card against the
+    CPU at the LPIPS tests' rtol 1e-4, and its input gradient within 1e-3
+    of the largest; the flags are left as they were."""
+    from autovfx_tpu_torch.utils import lpips
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    before = _flags()
+    rng = np.random.default_rng(12)
+    a, b = (torch.from_numpy(rng.random((128, 128, 3), np.float32))
+            for _ in range(2))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = a.to(dev).requires_grad_(True)
+        d = lpips.lpips_distance(x, b.to(dev))
+        d.backward()
+        out[dev] = (d.item(), x.grad.cpu())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * out["cpu"][0]
+    g_card, g_cpu = out["cuda"][1], out["cpu"][1]
+    assert ((g_card - g_cpu).abs().max() / g_cpu.abs().max()) < 1e-3
+    assert _flags() == before
+
+
+# ---- the edited frame's stages after the render, card against CPU --------------
+# On the port's rendition of tests/test_clip_fused.py's 96×64 scene (a
+# 400-splat ground carpet, a 3,000-surfel cube falling through two frames,
+# tile 16, an 8-light seeded envmap), with a 12³ smoke/fire volume and
+# melt tracers for the effects frame.  The bounds are the CPU tests':
+# shadow ratio within 1e-5 and hull weight equal on ≥ 99.9 % of pixels
+# (tests/test_torch_render.py), frames within 1e-4 on ≥ 99.5 % of pixels
+# with a mean difference ≤ 1e-3 (tests/test_torch_clip_multipass.py).
+AGREE, FRAME_AGREE = 0.999, 0.995
+
+
+def _to(x, dev):
+    """A dataclass of tensors (nested ones too) on ``dev``."""
+    fields = {}
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if torch.is_tensor(v):
+            v = v.to(dev)
+        elif dataclasses.is_dataclass(v):
+            v = _to(v, dev)
+        fields[f.name] = v
+    return dataclasses.replace(x, **fields)
+
+
+def _edit_clip(frames=2):
+    """The clip's inputs on the CPU, plain and with effects."""
+    from autovfx_tpu_torch.core.cameras import stack_cameras
+    from autovfx_tpu_torch.physics.shapes import build_hulls
+    from autovfx_tpu_torch.render import clip, meshsplat, smoke
+
+    g = make_gaussians(400, np.random.default_rng(0), spread=1.0,
+                       device="cpu")
+    xyz = g.xyz.clone()
+    xyz[:, 2] = xyz[:, 2].abs() * 0.02 - 0.4
+    g = dataclasses.replace(g, xyz=xyz)
+    cams = stack_cameras([
+        look_at_camera([2.2 * np.cos(a), 2.2 * np.sin(a), 1.2], [0, 0, 0.0],
+                       [0, 0, 1], fx=80.0, fy=80.0, width=96, height=64,
+                       device="cpu")
+        for a in np.linspace(0.0, 0.6, frames)])
+    corners = np.array([[x, y, z] for x in (-0.25, 0.25)
+                        for y in (-0.25, 0.25) for z in (-0.25, 0.25)],
+                       np.float32)
+    hull, _, _, _ = build_hulls([corners], device="cpu")
+    surf = meshsplat.sample_mesh_surfels(corners, cs.CUBE_FACES,
+                                         num_samples=3000, device="cpu")
+    zs = np.linspace(0.6, 0.3, frames)
+    traj_pos = np.stack([np.stack([np.zeros(frames), np.zeros(frames), zs],
+                                  -1)], 1).astype(np.float32)
+    traj_rot = np.tile(np.eye(3, dtype=np.float32), (frames, 1, 1, 1))
+    env = (0.3 + 0.7 * np.random.RandomState(1).rand(16, 32, 3)).astype(
+        np.float32)
+    s_cfg = smoke.SmokeConfig(resolution=12, jacobi_iters=5, with_fire=True)
+    states = smoke.simulate_smoke(
+        s_cfg, smoke.sphere_inflow(s_cfg, [6, 6, 2], 2.0, device="cpu"),
+        frames)
+    n = surf["points"].shape[0]
+    base = surf["points"].numpy() + np.array([0, 0, 0.3])
+    melt = dict(pos=np.stack([base * (1.0 - 0.3 * f / max(frames - 1, 1))
+                              for f in range(frames)]).astype(np.float32),
+                norm=np.tile(np.array([0, 0, 1.0], np.float32),
+                             (frames, n, 1)),
+                mask=np.ones(n, bool))
+    kw = dict(bg=g, cams=cams,
+              objects=[{"scale": 1.0, "material": {"rgb": [0.9, 0.1, 0.1]}}],
+              surfels=[surf], traj_pos=traj_pos, traj_rot=traj_rot,
+              hull_shape=hull, env=env, num_lights=8, device="cpu")
+    plain = clip.build_clip_inputs(**kw)
+    effects = clip.build_clip_inputs(
+        smoke_traj=(states, np.array([-0.6, -0.6, -0.3], np.float32), 1.2,
+                    s_cfg), melt=melt, **kw)
+    return plain, effects, s_cfg, P.RasterConfig(dup_budget=1 << 15, tile=16)
+
+
+@pytest.fixture(scope="module")
+def edit_clip(dev):
+    plain, effects, s_cfg, cfg = _edit_clip()
+    return {"cpu": (plain, effects), "cuda": (_to(plain, dev),
+                                              _to(effects, dev)),
+            "smoke_cfg": s_cfg, "config": cfg}
+
+
+def _frames_agree(got, want):
+    d = (got.cpu() - want).abs().amax(dim=-1)
+    assert (d <= 1e-4).double().mean().item() >= FRAME_AGREE, d.max()
+    assert d.mean().item() <= 1e-3
+
+
+def _merged(inp, cfg):
+    """The fused frame's merged render and the inputs of its stages."""
+    from autovfx_tpu_torch.core.cameras import index_camera
+    from autovfx_tpu_torch.render import clip
+
+    cam = index_camera(inp.cams, 0)
+    out = P.rasterize_multi([inp.bg, clip.shaded_object_gaussians(inp, 0,
+                                                                  cam)],
+                            cam, config=cfg)
+    return cam, out, clip.world_hull_planes_at(inp, 0)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_shadow_ratio_map_on_the_card(edit_clip, scale):
+    """The same depth and alpha (the CPU's merged render) on both."""
+    from autovfx_tpu_torch.render import shadow
+
+    res = {}
+    cpu_cam, out, _ = _merged(edit_clip["cpu"][0], edit_clip["config"])
+    for dev in ("cuda", "cpu"):
+        inp = edit_clip[dev][0]
+        cam, planes = (_to(cpu_cam, dev),
+                       _merged(inp, edit_clip["config"])[2])
+        a = out.alpha.clamp(0.0, 1.0).to(dev)
+        res[dev] = shadow.shadow_ratio_map(
+            cam, out.depth.to(dev), a.clamp(min=1e-3), inp.light_dirs,
+            inp.light_weights, planes, inp.hull_mask, scale=scale).cpu()
+    assert ((res["cuda"] - res["cpu"]).abs() <= 1e-5).double().mean() >= AGREE
+    assert res["cpu"].min() < 0.99  # some shadow in view
+
+
+def test_hull_object_weight_on_the_card(edit_clip):
+    from autovfx_tpu_torch.render import clip, shadow
+
+    cpu_cam, out, _ = _merged(edit_clip["cpu"][0], edit_clip["config"])
+    depth = clip.pass_depth(out, out.alpha.clamp(0.0, 1.0))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        inp = edit_clip[dev][0]
+        res[dev] = shadow.hull_object_weight(
+            _to(cpu_cam, dev), depth.to(dev),
+            _merged(inp, edit_clip["config"])[2], inp.hull_mask,
+            pad=clip.object_pad(inp)).cpu()
+    assert (res["cuda"] == res["cpu"]).double().mean() >= AGREE
+    assert 0.0 < res["cpu"].mean() < 1.0
+
+
+@pytest.mark.parametrize("path", ["fused", "multipass", "effects"])
+def test_edited_frame_on_the_card(edit_clip, path):
+    from autovfx_tpu_torch.render import clip
+
+    cfg = edit_clip["config"]
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        plain, effects = edit_clip[dev]
+        if path == "fused":
+            frames[dev] = clip.render_edited_frame_fused(plain, 1, cfg)
+        elif path == "multipass":
+            frames[dev] = clip.render_edited_frame(plain, 1, cfg)
+        else:
+            frames[dev] = clip.render_edited_frame_fused(
+                effects, 1, cfg, smoke_cfg=edit_clip["smoke_cfg"])
+    assert bool(torch.isfinite(frames["cuda"]).all())
+    _frames_agree(frames["cuda"], frames["cpu"])
+
+
+def test_render_clip_supersampled_on_the_card(edit_clip):
+    from autovfx_tpu_torch.render import clip
+
+    frames = {dev: clip.render_clip(edit_clip[dev][0], 2,
+                                    edit_clip["config"], fused=True,
+                                    supersample=2)
+              for dev in ("cuda", "cpu")}
+    assert frames["cuda"].shape == (2, 64, 96, 3)
+    _frames_agree(frames["cuda"], frames["cpu"])
+
+
+def test_effects_cases_on_the_card_match_the_cpu(dev):
+    """chip_smoke's card-against-CPU cases of the smoke, melt and LPIPS."""
+    err = cs.card_against_cpu(P)
+    assert set(err) == {"smoke fixed", "smoke adaptive", "melt", "lpips"}
