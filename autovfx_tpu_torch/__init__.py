@@ -3,7 +3,8 @@ NVIDIA H100.
 
 The JAX package stays the reference; this package mirrors its module
 names (``core/``, ``ops/``, ``render/``, ``physics/``, ``train/``,
-``utils/``) and imports neither JAX nor
+``utils/``, ``edit/``, ``gpt/``, ``perception/``, ``sugar/``) and
+imports neither JAX nor
 ``autovfx_tpu``.  Tensors on a CUDA device go through the hand-written
 kernels in ``csrc/`` (built with ``nvcc`` at first use, see
 ``ops/_build.py``); tensors on the CPU go through their plain PyTorch
@@ -24,6 +25,13 @@ versions.
   ``.npz`` checkpoints and init points cast onto a scene mesh.
 - ``autovfx_tpu_torch.utils``  seeded synthetic scenes, LPIPS, the
   evaluation metrics, float32 convolutions.
+- ``autovfx_tpu_torch.edit``   the edit layer: the edit IR and events,
+  mesh IO, the DSL and ``SceneRepresentation`` (physics, passes and
+  composite of an edit); ``edit_scene`` is its CLI.
+- ``autovfx_tpu_torch.gpt``    the program runner (``setup_LMP``) and the
+  planner prompts.
+- ``autovfx_tpu_torch.perception`` precomputed instance masks and object
+  extraction; ``autovfx_tpu_torch.sugar`` mesh decimation.
 - ``autovfx_tpu_torch.convert`` carries arrays of the JAX package's
   parameters and training state into this package's tensors.
 """

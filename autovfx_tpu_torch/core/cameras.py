@@ -1,7 +1,7 @@
 """Pinhole camera in the OpenCV/COLMAP convention (+z forward).
 
-Counterpart of ``autovfx_tpu/core/cameras.py:29-195`` (trajectory IO
-is not ported).  ``R``/``t`` are
+Counterpart of ``autovfx_tpu/core/cameras.py`` (the camera :29-195,
+the trajectory JSON and the field-of-view helpers :201-264).  ``R``/``t`` are
 the world-to-camera rotation and translation (``p_cam = R @ p + t``);
 the intrinsics are float32 tensors (0-d, or (B,) for a stacked batch)
 and the image size is plain Python ints.
@@ -9,12 +9,17 @@ and the image size is plain Python ints.
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
 from typing import List
 
 import numpy as np
 import torch
 
 from autovfx_tpu_torch.core import device as devices
+
+_CV_TO_GL = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,3 +178,71 @@ def index_camera(batch: Camera, i) -> Camera:
 
 def num_cameras(batch: Camera) -> int:
     return batch.R.shape[0]
+
+
+# ---- trajectory IO -------------------------------------------------------------
+
+
+def load_custom_trajectory(path: str, downscale_factor: float = 1.0,
+                           device=devices.DEFAULT):
+    """Load a ``custom_camera_path/<name>.json`` trajectory: frames
+    sorted by filename, their c2w as stored, shared intrinsics, an
+    optional downscale.  Returns (batched Camera on ``device``, c2w
+    (F, 4, 4) float32 numpy, filenames)."""
+    device = devices.resolve(device)
+    with open(path, "r") as f:
+        traj = json.load(f)
+    fx, fy, cx, cy = traj["fl_x"], traj["fl_y"], traj["cx"], traj["cy"]
+    w, h = traj["w"], traj["h"]
+    if downscale_factor > 1.0:
+        h = round(h / downscale_factor)
+        w = round(w / downscale_factor)
+        fx, fy = fx / downscale_factor, fy / downscale_factor
+        cx, cy = cx / downscale_factor, cy / downscale_factor
+    frames = sorted(traj["frames"], key=lambda fr: fr["filename"])
+    c2ws = np.array([fr["transform_matrix"] for fr in frames], np.float64)
+    cams = [camera_from_c2w(c2w, fx, fy, cx, cy, w, h, device=device)
+            for c2w in c2ws]
+    names = [fr["filename"] for fr in frames]
+    return stack_cameras(cams), c2ws.astype(np.float32), names
+
+
+def save_custom_trajectory(path: str, cams: Camera, names=None) -> None:
+    """Write a batched camera as the trajectory JSON."""
+    n = num_cameras(cams)
+    if names is None:
+        names = [f"{i:05d}.png" for i in range(n)]
+    host = lambda x: x.detach().cpu().numpy()
+    c2w = host(cams.c2w)
+    payload = {
+        "fl_x": float(host(cams.fx)[0]),
+        "fl_y": float(host(cams.fy)[0]),
+        "cx": float(host(cams.cx)[0]),
+        "cy": float(host(cams.cy)[0]),
+        "w": int(cams.width),
+        "h": int(cams.height),
+        "frames": [
+            {"filename": names[i], "transform_matrix": c2w[i].tolist()}
+            for i in range(n)
+        ],
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
+
+
+def fov2focal(fov: float, pixels: int) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
+def opencv_to_opengl_c2w(c2w_cv: np.ndarray) -> np.ndarray:
+    """OpenCV c2w -> OpenGL/Blender c2w (y and z axes flipped)."""
+    return np.asarray(c2w_cv, np.float32) @ _CV_TO_GL
+
+
+def opengl_to_opencv_c2w(c2w_gl: np.ndarray) -> np.ndarray:
+    return np.asarray(c2w_gl, np.float32) @ _CV_TO_GL

@@ -1,7 +1,8 @@
 """The Gaussian splat store: a dataclass of tensors with an ``active`` mask.
 
-Counterpart of ``autovfx_tpu/core/gaussians.py`` (activations :64-122,
-``create`` / ``pad_to`` / ``compact`` :126-201, ``merge`` :251).
+Counterpart of ``autovfx_tpu/core/gaussians.py`` (activations and
+``covariance`` :64-122, ``create`` / ``pad_to`` / ``compact`` :126-201,
+``transformed`` :203-248, ``merge`` :251).
 Fields keep the JAX package's layouts: ``xyz`` (N, 3), ``sh_dc`` (N, 3),
 ``sh_rest`` (N, K-1, 3), ``log_scales`` (N, 3), ``quats`` (N, 4) wxyz,
 ``opacity_logit`` (N,), ``active`` (N,) bool.
@@ -67,6 +68,12 @@ class Gaussians:
     def sh(self) -> torch.Tensor:
         """(N, K, 3) full SH coefficient tensor (DC first)."""
         return torch.cat([self.sh_dc[:, None, :], self.sh_rest], dim=1)
+
+    def covariance(self, scaling_modifier: float = 1.0) -> torch.Tensor:
+        """(N, 3, 3) world covariance R S S^T R^T."""
+        rot = quaternion.quat_to_rotmat(self.rotations)
+        m = rot * (self.scales * scaling_modifier)[:, None, :]
+        return m @ m.transpose(-1, -2)
 
     def colors(
         self, campos: torch.Tensor, degree: Optional[int] = None
@@ -154,6 +161,46 @@ class Gaussians:
             sh_rest=pad(self.sh_rest), log_scales=pad(self.log_scales),
             quats=quats, opacity_logit=logit, active=pad(self.active),
         )
+
+    def transformed(
+        self,
+        scale=1.0,
+        rotation_quat: Optional[torch.Tensor] = None,
+        translation: Optional[torch.Tensor] = None,
+        pivot: Optional[torch.Tensor] = None,
+        rotate_sh: bool = False,
+    ) -> "Gaussians":
+        """Uniform scale, then rotation, then translation of the cloud
+        about ``pivot`` (default: the mean of the active centers): the
+        log-scales grow by log(scale), the quaternions are premultiplied
+        by ``rotation_quat`` (wxyz).  ``rotate_sh`` also rotates the SH
+        coefficients (``sh_rotation.rotate_sh``)."""
+        if pivot is None:
+            w = self.active.to(torch.float32)[:, None]
+            pivot = torch.sum(self.xyz * w, dim=0) / torch.clamp(
+                torch.sum(w), min=1.0)
+        xyz = (self.xyz - pivot) * scale
+        log_scales = self.log_scales + torch.log(
+            torch.as_tensor(scale, dtype=torch.float32,
+                            device=self.xyz.device))
+        quats = self.quats
+        if rotation_quat is not None:
+            xyz = quaternion.quat_rotate(rotation_quat[None, :], xyz)
+            quats = quaternion.quat_multiply(rotation_quat[None, :],
+                                             self.rotations)
+        xyz = xyz + pivot
+        if translation is not None:
+            xyz = xyz + translation[None, :]
+        out = dataclasses.replace(self, xyz=xyz, log_scales=log_scales,
+                                  quats=quats)
+        if rotate_sh and rotation_quat is not None:
+            from autovfx_tpu_torch.core.sh_rotation import rotate_sh as rot_sh
+
+            rot = quaternion.quat_to_rotmat(rotation_quat).cpu().numpy()
+            new_sh = rot_sh(out.sh, rot)
+            out = dataclasses.replace(out, sh_dc=new_sh[:, 0],
+                                      sh_rest=new_sh[:, 1:])
+        return out
 
     def compact(self) -> "Gaussians":
         """Drop the inactive slots (the capacity changes: between steps)."""

@@ -1,12 +1,14 @@
-"""Vanilla-3DGS binary PLY reader and writer (numpy parsing).
+"""Gaussian checkpoints: the vanilla-3DGS binary PLY (numpy parsing), a
+SuGaR ``.pt`` and the ``.npz`` archive.
 
-Counterpart of ``autovfx_tpu/core/ply_io.py`` ``save_ply``/``load_ply``;
-the files are byte-identical in both directions.  Properties are
+Counterpart of ``autovfx_tpu/core/ply_io.py``; the PLY files are
+byte-identical in both directions.  Properties are
 x,y,z,nx,ny,nz,f_dc_{0..2},f_rest_{0..3*(K-1)-1},opacity,scale_{0..2},
 rot_{0..3} as little-endian float32; f_rest is channel-major.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import numpy as np
@@ -123,3 +125,53 @@ def load_ply(path: str, device=devices.DEFAULT) -> Gaussians:
         opacity_logit=t(data["opacity"]),
         active=torch.ones(count, dtype=torch.bool, device=device),
     )
+
+
+def load_sugar_pt(path: str, device=devices.DEFAULT) -> Gaussians:
+    """Read a SuGaR ``.pt`` checkpoint straight into tensors on
+    ``device``: ``_points`` (N, 3), ``all_densities`` (N, 1) opacity
+    logits, ``_sh_coordinates_dc`` (N, 1, 3), ``_sh_coordinates_rest``
+    (N, K-1, 3), ``_scales`` (N, 3) log-scales, ``_quaternions`` (N, 4),
+    at the top level or under ``state_dict``."""
+    device = devices.resolve(device)
+    ckpt = torch.load(path, map_location=device, weights_only=False)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    f32 = lambda key: sd[key].detach().to(device=device,
+                                          dtype=torch.float32)
+    xyz = f32("_points")
+    n = xyz.shape[0]
+    return Gaussians(
+        xyz=xyz.contiguous(),
+        sh_dc=f32("_sh_coordinates_dc").reshape(n, 3).contiguous(),
+        sh_rest=f32("_sh_coordinates_rest").contiguous(),
+        log_scales=f32("_scales").contiguous(),
+        quats=f32("_quaternions").contiguous(),
+        opacity_logit=f32("all_densities").reshape(-1).contiguous(),
+        active=torch.ones(n, dtype=torch.bool, device=device),
+    )
+
+
+def load_gaussians(path: str, device=devices.DEFAULT) -> Gaussians:
+    """A checkpoint by its extension: ``.pt`` (SuGaR), ``.ply`` or
+    ``.npz``."""
+    if path.endswith(".pt"):
+        return load_sugar_pt(path, device=device)
+    if path.endswith(".ply"):
+        return load_ply(path, device=device)
+    if path.endswith(".npz"):
+        return load_npz(path, device=device)
+    raise ValueError(f"unsupported gaussian checkpoint: {path}")
+
+
+def save_npz(path: str, g: Gaussians) -> None:
+    """Every field, inactive slots included, in one compressed archive."""
+    np.savez_compressed(path, **{
+        f.name: getattr(g, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(g)})
+
+
+def load_npz(path: str, device=devices.DEFAULT) -> Gaussians:
+    device = devices.resolve(device)
+    with np.load(path) as z:
+        return Gaussians(**{f.name: torch.from_numpy(z[f.name]).to(device)
+                            for f in dataclasses.fields(Gaussians)})

@@ -97,12 +97,12 @@ def incinerate_gaussians(g, progress: float):
         opacity_logit=g.opacity_logit + float(np.log(op_scale)))
 
 
-def incinerate_colors(colors: np.ndarray,
-                      progress: float) -> tuple[np.ndarray, float]:
-    """Burn to black and fade to ash: (colors, opacity scale)."""
+def incinerate_colors(colors, progress: float) -> tuple:
+    """Burn to black and fade to ash: (colors as a float32 tensor on the
+    colors' device, opacity scale)."""
     p = float(np.clip(progress, 0.0, 1.0))
-    char = np.array(CHAR, np.float32)
-    c = np.asarray(colors, np.float32)
+    c = torch.as_tensor(colors, dtype=torch.float32)
+    char = torch.tensor(CHAR, device=c.device)
     burned = (1 - 0.9 * p) * c + 0.9 * p * char[None]
     opacity_scale = 1.0 if p < 0.7 else float(1.0 - (p - 0.7) / 0.3)
     return burned, max(opacity_scale, 0.0)

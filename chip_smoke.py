@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the novel view,
-training, the edited frame, its effects and a panorama.
+training, the edited frame, its effects, a panorama and an edit program
+through the port's edit entry.
 
 Run from the root of a checkout, with no arguments:
 
@@ -57,9 +58,21 @@ in (never JAX, never ``autovfx_tpu``) and
 10. renders a panorama of the bench scene at face 512 (six launches of
     each forward kernel, the first face checked against the plain
     versions);
-11. times the physics substep and the edited clip's replay (last: the
+11. runs the port's edit entry, ``edit_scene.run_scene_editing``, on the
+    bench scene with a 40,000-splat table, the ring at 1296×840 and an
+    offline program (detect the table from its masks, drop a cube on
+    it): the original video's render, detect -> extract, the program,
+    physics and ``render_scene`` over the 8 views, each stage timed and
+    its renders counted, the kernel launches counted over the whole run;
+    checks the frames and files, the extracted table and the splat split
+    (against a brute-force nearest-triangle split), the cube at rest on
+    its top, drawn inside its projected silhouette in the anchor frame,
+    well outside it the composite and the shadow ratio against plain
+    recomputations, and a background and an object pass's kernels
+    against their plain versions; and times a frame;
+12. times the physics substep and the edited clip's replay (last: the
     profiler's sessions after its long one lose records);
-12. puts each kernel's time on each path beside its bound (``bound``:
+13. puts each kernel's time on each path beside its bound (``bound``:
     the least time the card could take, from the bytes and operations
     that path's inputs need, ``*_work``) and their ratio, the share.
 
@@ -158,6 +171,57 @@ FIELD_TOL, FIELD_SHARE, FIELD_MAX_TOL, LPIPS_RTOL = 1e-5, 0.999, 1e-3, 1e-4
 # the panorama of the bench scene, from inside its clutter
 PANORAMA_FACE = 512
 PANORAMA_CENTER = (0.0, 0.0, 0.6)
+
+# the edit program (the port's edit_scene entry over the bench scene): a
+# "table" of EDIT_TABLE_SPLATS splats filling a box of TABLE_SIDE x
+# TABLE_SIDE x TABLE_TOP m on the ground, its sides along and across
+# camera 0's view, its center TABLE_AHEAD m ahead of camera 0, so that its
+# near edge lies 0.1 m ahead of the camera's ground point and the whole
+# footprint in front of the lens.  The bench scene is opaque ~0.37 m from
+# a ring camera (the median depth of camera 0's render), so the table
+# stands as near camera 0 as that allows; the clutter still hides its
+# top from camera 0, and the cube on it shows.  The DSL lands the cube
+# on the centroid of one of the top's two triangles, 0.1 m nearer or
+# farther and 0.1 m to the side of the center, 0.2 m from the top's
+# edges, so the 0.3 m cube rests wholly on it.  It is dropped
+# DROP_OFFSET m above that point: from the DSL's default 0.6 m both
+# packages' solvers still hold it 3.8 cm up at the last frame
+# (tests/test_torch_edit_table_drop.py).
+EDIT_TABLE_SPLATS = 40_000
+TABLE_SIDE, TABLE_TOP, TABLE_AHEAD = 0.6, 1.0, 0.4
+DROP_OFFSET = 0.3
+CUBE_HALF = 0.15  # the 0.3 m cube
+TABLE_MARGIN = 0.05  # m: the extracted mesh lies inside the table box
+# The split: object_gaussians.ply holds the splats whose nearest
+# scene-mesh triangle (among those listed in the point's cell of a
+# 32-cell grid over the mesh, as the reference finds it) was extracted.
+# Where the true nearest triangle lies within a cell (20 m / 32) of the
+# splat, the grid always lists it, so there the split must equal a
+# brute-force one but for SPLIT_TIES_MAX splats at a tie.  The clutter
+# has no mesh, so the clutter nearest the table's faces joins the table,
+# and the table's splats nearest a face that no ring view sees stay out:
+# the share of the table in the file (0.60 at full width) and the share
+# of the table kept (0.70: the table's volume nearest its top and the
+# three sides the ring sees) are held to limits below them.
+GRID_CELLS = 32
+SPLIT_TIES_MAX = 100
+TABLE_SHARE_MIN, TABLE_RECALL_MIN = 0.5, 0.6
+# the anchor frame: of the pixels inside the cube's projected silhouette
+# (shrunk by SILHOUETTE_INSET px), at least SILHOUETTE_CHANGED_MIN differ
+# by > 0.1 from the preamble; the pixels more than SILHOUETTE_OUTSET px
+# outside it, at least OUTSIDE_SHARE_MIN of the frame, are the
+# background pass darkened by its shadow ratio and nothing else (within
+# COMPOSITE_TOL), and where unshadowed (ratio >= 0.99) within PNG_TOL of
+# the preamble; the ratio at SHADOW_SAMPLES seeded pixels of them matches
+# a plain slab test of the cube's box along each light within
+# SHADOW_TOL on at least SHADOW_SHARE_MIN of them (a light grazing an
+# edge may fall either way)
+SILHOUETTE_INSET, SILHOUETTE_OUTSET = 8, 64  # px at 1296 wide
+SILHOUETTE_CHANGED_MIN, OUTSIDE_SHARE_MIN = 0.5, 0.1
+PNG_TOL = 1.0 / 255.0 + 1e-6  # the PNGs truncate to 8 bits
+COMPOSITE_TOL = 1e-5
+SHADOW_SAMPLES, SHADOW_TOL, SHADOW_SHARE_MIN = 4096, 1e-4, 0.995
+EDIT_TILE = 16  # RasterConfig's default, which the edit scene renders at
 
 # tolerances of the kernel checks
 MEAN2D_ATOL = 1e-4  # px, plus 2 float32 ulps of the coordinate
@@ -2177,6 +2241,602 @@ def panorama_point(P, card: str, g) -> tuple[dict, dict]:
     return launches, err
 
 
+# ---- the edit program ----------------------------------------------------------
+
+
+def table_frame():
+    """The table's center (x, y) and the unit vectors along (ahead) and
+    across (side) camera 0's view on the ground."""
+    cam0 = ring_cameras()[0]
+    eye = cam0.center.cpu().numpy().astype(np.float64)
+    ahead = -eye[:2] / np.linalg.norm(eye[:2])  # the ring looks inward
+    return eye[:2] + TABLE_AHEAD * ahead, ahead, np.array([-ahead[1],
+                                                           ahead[0]])
+
+
+def table_geometry():
+    """The table's mesh (8 vertices, 12 faces counterclockwise from
+    outside: the top split along the diagonal from the near corner on
+    the camera's left to the far one on its right) and its splats'
+    seeded positions filling the box."""
+    center, ahead, side = table_frame()
+    h = TABLE_SIDE / 2
+    ring = [center - h * ahead + h * side, center - h * ahead - h * side,
+            center + h * ahead - h * side, center + h * ahead + h * side]
+    verts = np.array([[x, y, z] for z in (0.0, TABLE_TOP) for x, y in ring],
+                     np.float32)
+    faces = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5],
+                      [0, 5, 4], [1, 2, 6], [1, 6, 5], [2, 3, 7], [2, 7, 6],
+                      [3, 0, 4], [3, 4, 7]], np.int64)
+    u = np.random.default_rng(11).random((EDIT_TABLE_SPLATS, 3))
+    xy = (center + ((u[:, :1] - 0.5) * TABLE_SIDE) * ahead
+          + ((u[:, 1:2] - 0.5) * TABLE_SIDE) * side)
+    xyz = np.concatenate([xy, TABLE_TOP * u[:, 2:]], 1).astype(np.float32)
+    return verts, faces, xyz
+
+
+def inside_table(points: np.ndarray, margin: float) -> np.ndarray:
+    """Which points lie in the table's box grown by ``margin``."""
+    center, ahead, side = table_frame()
+    d = points[:, :2] - center
+    h = TABLE_SIDE / 2 + margin
+    return ((np.abs(d @ ahead) <= h) & (np.abs(d @ side) <= h)
+            & (points[:, 2] >= -margin) & (points[:, 2] <= TABLE_TOP + margin))
+
+
+def closest_triangle(points: np.ndarray, verts: np.ndarray,
+                     faces: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(N,) the index of each point's nearest triangle by brute force in
+    float64 (the lower index at a tie) and its squared distance:
+    Ericson's closest point on a triangle, one triangle at a time."""
+    p = points.astype(np.float64)
+    best = np.full(len(p), np.inf)
+    idx = np.zeros(len(p), np.int64)
+    dot = lambda x, y: (x * y).sum(-1)
+    for t, (a, b, c) in enumerate(verts[faces].astype(np.float64)):
+        ab, ac, ap, bp, cp = b - a, c - a, p - a, p - b, p - c
+        d1, d2, d3, d4, d5, d6 = (dot(ap, ab), dot(ap, ac), dot(bp, ab),
+                                  dot(bp, ac), dot(cp, ab), dot(cp, ac))
+        va, vb, vc = d3 * d6 - d5 * d4, d5 * d2 - d1 * d6, d1 * d4 - d3 * d2
+        # Ericson's regions, the first that holds wins: corner a, corner
+        # b, edge ab, corner c, edge ac, edge bc, the face
+        with np.errstate(divide="ignore", invalid="ignore"):
+            regions = [
+                ((d1 <= 0) & (d2 <= 0), a + 0 * ap),
+                ((d3 >= 0) & (d4 <= d3), b + 0 * ap),
+                ((vc <= 0) & (d1 >= 0) & (d3 <= 0),
+                 a + (d1 / (d1 - d3))[:, None] * ab),
+                ((d6 >= 0) & (d5 <= d6), c + 0 * ap),
+                ((vb <= 0) & (d2 >= 0) & (d6 <= 0),
+                 a + (d2 / (d2 - d6))[:, None] * ac),
+                ((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0),
+                 b + ((d4 - d3) / ((d4 - d3) + (d5 - d6)))[:, None] * (c - b)),
+            ]
+            denom = 1.0 / (va + vb + vc)
+            q = a + (vb * denom)[:, None] * ab + (vc * denom)[:, None] * ac
+        for hold, point in regions[::-1]:
+            q = np.where(hold[:, None], point, q)
+        dist = dot(p - q, p - q)
+        closer = dist < best
+        best = np.where(closer, dist, best)
+        idx = np.where(closer, t, idx)
+    return idx, best
+
+
+def convex_hull(pts: np.ndarray) -> np.ndarray:
+    """The convex hull of 2-D points, counterclockwise (monotone chain)."""
+    pts = sorted(map(tuple, pts))
+    cross = lambda o, a, b: ((a[0] - o[0]) * (b[1] - o[1])
+                             - (a[1] - o[1]) * (b[0] - o[0]))
+    lower, upper = [], []
+    for seq, out in ((pts, lower), (pts[::-1], upper)):
+        for q in seq:
+            while len(out) >= 2 and cross(out[-2], out[-1], q) <= 0:
+                out.pop()
+            out.append(q)
+    return np.array(lower[:-1] + upper[:-1])
+
+
+def in_polygon(hull: np.ndarray, height: int, width: int,
+               grow: float) -> torch.Tensor:
+    """(H, W) which pixel centers lie inside the convex polygon ``hull``
+    with every edge moved out by ``grow`` px (in, where negative)."""
+    j, i = torch.meshgrid(torch.arange(height, dtype=torch.float64) + 0.5,
+                          torch.arange(width, dtype=torch.float64) + 0.5,
+                          indexing="ij")
+    inside = torch.ones(height, width, dtype=torch.bool)
+    mid = hull.mean(0)
+    for a, b in zip(hull, np.roll(hull, -1, 0)):
+        n = np.array([b[1] - a[1], a[0] - b[0]]) / np.linalg.norm(b - a)
+        if n @ (mid - a) < 0:
+            n = -n  # toward the inside
+        inside &= (i - a[0]) * n[0] + (j - a[1]) * n[1] >= -grow
+    return inside
+
+
+def edit_program_files(P, root: str) -> dict:
+    """The program's inputs under ``root``: the bench scene and the table
+    as one PLY, the ground quad and the table box as the scene mesh, the
+    ring's trajectory, the cube, the table's DEVA masks (its splats alone
+    through each ring view on the card, alpha > 0.4, as PNGs) and the
+    program."""
+    from autovfx_tpu_torch.core import cameras, ply_io
+    from autovfx_tpu_torch.core.gaussians import merge
+    from autovfx_tpu_torch.edit import mesh_io
+    from autovfx_tpu_torch.utils import png
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like, \
+        make_gaussians
+
+    t0 = time.perf_counter()
+    t_verts, t_faces, t_xyz = table_geometry()
+    table = make_gaussians(EDIT_TABLE_SPLATS, np.random.default_rng(12),
+                           scale_range=(0.01, 0.03), device="cpu")
+    table = dataclasses.replace(table, xyz=torch.from_numpy(t_xyz))
+    g = merge(make_garden_like(N_SPLATS, seed=0, extent=EXTENT,
+                               device="cpu"), table)
+    ply = os.path.join(root, "scene.ply")
+    ply_io.save_ply(ply, g)
+    ground = np.array([[-10, -10, 0], [10, -10, 0], [10, 10, 0],
+                       [-10, 10, 0]], np.float32)
+    mesh = os.path.join(root, "scene_mesh.obj")
+    mesh_io.save_obj(mesh, mesh_io.Mesh(
+        np.concatenate([ground, t_verts]),
+        np.concatenate([[[0, 1, 2], [0, 2, 3]], t_faces + 4])))
+    cube = os.path.join(root, "cube.obj")
+    corners = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
+                        for z in (-0.5, 0.5)], np.float32)
+    mesh_io.save_obj(cube, mesh_io.Mesh(corners, CUBE_FACES))
+    cams = cameras.stack_cameras(ring_cameras())
+    cameras.save_custom_trajectory(
+        os.path.join(root, "custom_camera_path", "ring.json"), cams)
+    masks = os.path.join(root, "cache", "tracking", "table", "1")
+    os.makedirs(masks)
+    table = dataclasses.replace(table, **{
+        f.name: getattr(table, f.name).to(DEVICE)
+        for f in dataclasses.fields(table)})
+    config = P.RasterConfig(dup_budget=1 << 22, tile=EDIT_TILE)
+    mask_px = []
+    for i in range(N_CAMS):
+        out = P.rasterize(table, cameras.index_camera(cams, i), config=config)
+        check(not bool(out.overflow), f"table mask {i}: overflow")
+        m = (out.alpha > 0.4).cpu().numpy()
+        mask_px.append(int(m.sum()))
+        png.write_png(os.path.join(masks, f"{i:05d}.png"),
+                      m.astype(np.uint8) * 255)
+    # the table stands in front of camera 0: the ring's two neighbours
+    # of camera 0 do not see it, as a tracker loses an object out of view
+    check(mask_px[0] > 0 and sum(m > 0 for m in mask_px) >= N_CAMS // 2,
+          f"the ring views see too little of the table: {mask_px}")
+    program = os.path.join(root, "program.py")
+    with open(program, "w") as f:
+        f.write('table = detect_object(scene, "table")\n'
+                f"pos = sample_point_above_object(scene, table, "
+                f"VERTICAL_OFFSET={DROP_OFFSET})\n"
+                "obj = get_default_object_info()\n"
+                f'obj["object_path"] = {cube!r}\n'
+                'obj["object_name"] = "cube"\n'
+                'obj["pos"] = pos\n'
+                'obj["scale"] = 0.3\n'
+                "obj = allow_physics(obj)\n"
+                "insert_object(scene, obj)\n")
+    print(f"edit program inputs: {g.capacity} splats ({EDIT_TABLE_SPLATS} "
+          f"of them the table) in a {os.path.getsize(ply) / 2**20:.1f} MiB "
+          f"PLY, table masks of {mask_px} pixels, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(ply=ply, mesh=mesh, program=program, root=root)
+
+
+class StageClock:
+    """Wall time and ``SceneRepresentation.rasterize`` calls of named
+    stages, each ended by a device synchronize."""
+
+    def __init__(self):
+        self.stages = {}
+        self.renders = 0
+
+    def wrap(self, owner, attr: str, stage, keep=None):
+        """Time each call of ``owner.attr`` as ``stage`` (a name, or a
+        function of the call's number that gives a name or None: not
+        timed); ``keep(result, *a, **k)`` sees each result."""
+        fn = getattr(owner, attr)
+        calls = [0]
+
+        def timed(*a, **k):
+            name = stage(calls[0]) if callable(stage) else stage
+            calls[0] += 1
+            if name is None:
+                out = fn(*a, **k)
+            else:
+                sync()
+                renders = self.renders
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                sync()
+                rec = self.stages.setdefault(name, {"s": 0.0, "renders": 0})
+                rec["s"] += time.perf_counter() - t0
+                rec["renders"] += self.renders - renders
+            if keep is not None:
+                keep(out, *a, **k)
+            return out
+
+        setattr(owner, attr, timed)
+
+    def exclusive(self, outer: str, inner: str) -> None:
+        """Take ``inner``'s time and renders out of ``outer``'s (a stage
+        that runs inside another)."""
+        o, i = self.stages[outer], self.stages[inner]
+        o["s"] -= i["s"]
+        o["renders"] -= i["renders"]
+
+
+def edit_program_point(P, card: str) -> tuple[dict, dict]:
+    """The port's edit entry, ``edit_scene.run_scene_editing``, on the
+    bench scene with a table at full width: the preamble's render, detect
+    -> extract on the table's masks, the program, physics and
+    ``render_scene`` over the 8 ring views, each stage timed and
+    counted; then its results checked."""
+    import random
+
+    from autovfx_tpu_torch import edit_scene
+    from autovfx_tpu_torch.core import ply_io
+    from autovfx_tpu_torch.core.cameras import index_camera
+    from autovfx_tpu_torch.core.quaternion import euler_to_rotmat
+    from autovfx_tpu_torch.edit import edit_ir, edit_utils, mesh_io
+    from autovfx_tpu_torch.edit import scene_representation as SR
+    from autovfx_tpu_torch.gpt import lmp
+    from autovfx_tpu_torch.physics import solver
+    from autovfx_tpu_torch.render import meshsplat
+    from autovfx_tpu_torch.utils import png
+
+    ops = P.ops
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    files = edit_program_files(P, root)
+    # the budget: the worst ring view of the background and of the cube's
+    # 60,000 surfels resting on either of its landing points
+    g = ply_io.load_ply(files["ply"], device=DEVICE)
+    t_verts, t_faces, _ = table_geometry()
+    top = t_verts[4:]
+    landings = [top[[0, 1, 2]].mean(0), top[[0, 2, 3]].mean(0)]
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                        for z in (-1, 1)], np.float32) * CUBE_HALF
+    need = lambda x, c: int(ops.binning.required_budget(
+        ops.preprocess_cuda.preprocess(x, c, tile=EDIT_TILE)))
+    worst = max(need(g, c) for c in ring_cameras())
+    for land in landings:
+        surf = meshsplat.sample_mesh_surfels(
+            corners + land + [0, 0, CUBE_HALF], CUBE_FACES, 60_000,
+            device=DEVICE)
+        cube = meshsplat.surfels_to_gaussians(
+            surf["points"], surf["normals"], surf["colors"], surf["radius"])
+        worst = max(worst, max(need(cube, c) for c in ring_cameras()))
+    budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
+    del g, surf, cube
+    print(f"edit program duplicates: worst view {worst}, budget {budget}")
+    opts = edit_scene.get_opts([
+        "--source_path", root, "--model_path", root,
+        "--gaussians_ckpt_path", files["ply"],
+        "--scene_mesh_path", files["mesh"], "--custom_traj_name", "ring",
+        "--dup_budget", str(budget), "--edit_text", "Drop a cube on the table.",
+        "--offline_program", files["program"], "--device", DEVICE])
+
+    # the stages, timed; the renders counted; the scene and its anchor
+    # frame's shadow pass and its inputs kept for the checks
+    clock = StageClock()
+    seen = {}
+    scene_cls = SR.SceneRepresentation
+    saved = {k: getattr(scene_cls, k) for k in (
+        "rasterize", "render_from_3DGS", "run_physics", "render_scene",
+        "render_frame", "render_shadow_pass")}
+    saved_detect, saved_call = edit_utils.detect_object, lmp.LMP.__call__
+
+    def count_render(self, *a, **k):
+        clock.renders += 1
+        return saved["rasterize"](self, *a, **k)
+
+    def keep_scene(_, self, *a, **k):
+        seen["scene"] = self
+
+    def keep_frame(_, self, fi, color, depth, alpha):
+        if fi == self.hparams.anchor_frame_idx:
+            seen.update(bg=color, depth=depth, alpha=alpha)
+
+    def keep_shadow(ratio, self, fi, depth, alpha):
+        if fi == self.hparams.anchor_frame_idx:
+            seen["ratio"] = ratio
+
+    scene_cls.rasterize = count_render
+    clock.wrap(scene_cls, "render_from_3DGS",
+               lambda n: "preamble" if n == 0 else None)
+    clock.wrap(scene_cls, "run_physics", "physics")
+    clock.wrap(scene_cls, "render_scene", "render_scene", keep=keep_scene)
+    clock.wrap(scene_cls, "render_frame", lambda n: None, keep=keep_frame)
+    clock.wrap(scene_cls, "render_shadow_pass", lambda n: None,
+               keep=keep_shadow)
+    clock.wrap(edit_utils, "detect_object", "detect+extract")
+    clock.wrap(lmp.LMP, "__call__", "program")
+    random.seed(0)
+    np.random.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    try:
+        frames = edit_scene.run_scene_editing(opts, opts.edit_text,
+                                              opts.offline_program)
+        sync()
+    finally:
+        for k, fn in saved.items():
+            setattr(scene_cls, k, fn)
+        edit_utils.detect_object, lmp.LMP.__call__ = saved_detect, saved_call
+    wall = time.perf_counter() - t0
+    launches = counters(ops)
+    peak = torch.cuda.max_memory_allocated()
+    st = clock.stages
+    # physics runs inside render_scene, detect inside the program
+    clock.exclusive("render_scene", "physics")
+    clock.exclusive("program", "detect+extract")
+    scene = seen["scene"]
+    anchor = scene.hparams.anchor_frame_idx
+
+    # the frames and the files
+    check(tuple(frames.shape) == (N_CAMS, HEIGHT, WIDTH, 3),
+          f"edit program frames: shape {tuple(frames.shape)}")
+    check(frames.device.type == torch.device(DEVICE).type,
+          "edit program frames: not on the device")
+    check(bool(torch.isfinite(frames).all()), "edit program frames: finite")
+    check(frames.min().item() >= 0.0 and frames.max().item() <= 1.0,
+          "edit program frames: outside [0, 1]")
+    cache = os.path.join(root, "cache")
+    blended = os.path.join(cache, "blender_output", "blended")
+    for i in range(N_CAMS):
+        img = png.read_png(os.path.join(blended, f"{i:04d}.png"))
+        check(img.shape == (HEIGHT, WIDTH, 3), f"blended PNG {i}: shape")
+    cfg = edit_ir.EditConfig.from_json(os.path.join(cache,
+                                                    "edit_config.json"))
+    check(cfg.num_frames == N_CAMS and len(cfg.insert_object_info) == 1,
+          "edit_config.json: frames or objects")
+    oid = cfg.insert_object_info[0]["object_id"]
+    check(not bool(scene.overflowed), "edit program: duplicate overflow")
+
+    # the extraction: the table's triangles, and the splats whose nearest
+    # scene-mesh triangle is one of them
+    base = os.path.join(cache, "extract", "table", "1")
+    obj_mesh = mesh_io.load_mesh(os.path.join(base, "object_mesh",
+                                              "object_mesh.obj"))
+    check(len(obj_mesh.faces) > 0 and bool(
+        inside_table(obj_mesh.vertices, TABLE_MARGIN).all()),
+        f"extracted table mesh leaves the table box: "
+        f"{obj_mesh.vertices.min(0)} .. {obj_mesh.vertices.max(0)}")
+    scene_mesh = mesh_io.load_mesh(files["mesh"])
+    tri = scene_mesh.vertices[scene_mesh.faces]
+    picked_tri = np.array([any(np.allclose(np.sort(t, 0), np.sort(o, 0))
+                               for o in obj_mesh.vertices[obj_mesh.faces])
+                           for t in tri])
+    check(int(picked_tri.sum()) == len(obj_mesh.faces),
+          "extracted table mesh: not the scene mesh's triangles")
+    xyz = ply_io.load_ply(files["ply"], device="cpu").xyz.numpy()
+    nearest, d2 = closest_triangle(xyz, scene_mesh.vertices,
+                                   scene_mesh.faces)
+    span = scene_mesh.vertices.max(0) - scene_mesh.vertices.min(0)
+    exact = d2 < (float(span.max()) / GRID_CELLS) ** 2
+    row = np.dtype((np.void, 12))
+    picked = ply_io.load_ply(os.path.join(base, "object_gaussians.ply"),
+                             device="cpu").xyz.numpy()
+    got = np.isin(np.ascontiguousarray(xyz).view(row)[:, 0],
+                  np.ascontiguousarray(picked).view(row)[:, 0])
+    check(int(got.sum()) == len(picked), "object_gaussians.ply: a splat "
+          "that is not the scene's")
+    split_off = int((got != picked_tri[nearest])[exact].sum())
+    check(split_off <= SPLIT_TIES_MAX,
+          f"object_gaussians.ply: {split_off} of the {int(exact.sum())} "
+          f"splats within a grid cell of the mesh differ from the split by "
+          f"nearest triangle (at most {SPLIT_TIES_MAX} ties wanted)")
+    is_table = np.arange(len(xyz)) >= N_SPLATS  # merged after the scene
+    hits = int((got & is_table).sum())
+    share, recall = hits / max(len(picked), 1), hits / EDIT_TABLE_SPLATS
+    check(share >= TABLE_SHARE_MIN and recall >= TABLE_RECALL_MIN,
+          f"object_gaussians.ply: {share:.3f} of its splats are the table's "
+          f"and {recall:.3f} of the table's are in it (at least "
+          f"{TABLE_SHARE_MIN} and {TABLE_RECALL_MIN} wanted)")
+
+    # physics: the cube fell onto the table top and rests there
+    rb = scene.rb_transform[oid]
+    z = np.array([rb[str(f)]["pos"][2] for f in range(N_CAMS)])
+    xy = np.array(rb[str(N_CAMS - 1)]["pos"][:2])
+    rest = TABLE_TOP + CUBE_HALF  # the cube's center resting on the top
+    margin = solver.SolverConfig().collision_margin
+    check(z[0] - z[-1] > 0.1, f"the cube did not fall: z {z}")
+    check(z.min() >= rest - margin, f"the cube went into the table: z {z}")
+    check(abs(z[-1] - rest) <= margin,
+          f"the cube does not rest on the table top: z {z[-1]}, top "
+          f"{rest} ± {margin}")
+    check(min(np.abs(xy - land[:2]).max() for land in landings) <= 1e-3,
+          f"the cube rests off its landing points: {xy}")
+
+    # the anchor frame: the cube inside its projected silhouette; well
+    # outside it, the background pass as the preamble rendered it,
+    # darkened by the shadow ratio alone, and that ratio against a plain
+    # slab test of the cube's box
+    cam = index_camera(scene.cameras, anchor)
+    pose = rb[str(anchor)]
+    rot = euler_to_rotmat(*[float(x) for x in pose["rot"]]).numpy()
+    world = corners @ rot.T + np.asarray(pose["pos"], np.float32)
+    uv, depth = cam.project(torch.from_numpy(world.astype(np.float32))
+                            .to(DEVICE))
+    check(bool((depth > 0).all()), "the cube reaches behind camera 0")
+    hull = convex_hull(uv.cpu().numpy().astype(np.float64))
+    px = WIDTH / 1296.0
+    core = in_polygon(hull, HEIGHT, WIDTH, -SILHOUETTE_INSET * px).to(DEVICE)
+    near = in_polygon(hull, HEIGHT, WIDTH, SILHOUETTE_OUTSET * px).to(DEVICE)
+    pre = png.read_png(os.path.join(cache, "traj", "images",
+                                    f"{anchor:05d}.png"))
+    pre = torch.from_numpy(pre.astype(np.float32) / 255.0).to(DEVICE)
+    frame = frames[anchor]
+    diff = (frame - pre).abs().amax(-1)
+    bg, ratio, alpha = seen["bg"], seen["ratio"], seen["alpha"]
+    bg_off = float((torch.clamp(bg, 0, 1) - pre).abs().max())
+    check(bg_off <= PNG_TOL, f"anchor frame: the edit's background pass "
+          f"differs from the preamble's PNG by up to {bg_off:.5f}")
+    in_changed = float((diff[core] > 0.1).float().mean()) if bool(
+        core.any()) else 0.0
+    check(in_changed >= SILHOUETTE_CHANGED_MIN,
+          f"anchor frame: {in_changed:.3f} of the {int(core.sum())} pixels "
+          f"inside the cube's silhouette differ from the preamble by > 0.1 "
+          f"(at least {SILHOUETTE_CHANGED_MIN} wanted)")
+    outside = ~near
+    out_share = float(outside.float().mean())
+    r = torch.where((ratio - 1.0).abs() >= 0.01, ratio,
+                    torch.ones_like(ratio))[..., None]
+    a = torch.clamp(alpha, 0, 1)[..., None]
+    want = torch.clamp(bg * r * a + bg * (1.0 - a), 0, 1)
+    comp_off = float((frame - want).abs().amax(-1)[outside].max())
+    lit = outside & (ratio >= 0.99)
+    lit_off = float(diff[lit].max()) if bool(lit.any()) else 0.0
+    check(out_share >= OUTSIDE_SHARE_MIN and comp_off <= COMPOSITE_TOL
+          and lit_off <= PNG_TOL,
+          f"anchor frame: {out_share:.3f} of the frame lies well outside the "
+          f"cube (at least {OUTSIDE_SHARE_MIN} wanted); there it is off the "
+          f"shadowed background by up to {comp_off:.2e} ({COMPOSITE_TOL} "
+          f"allowed) and, where unshadowed, off the preamble by up to "
+          f"{lit_off:.5f} ({PNG_TOL:.5f} allowed)")
+    dirs, weights = scene._shadow_lights()
+    pool = np.flatnonzero(outside.cpu().numpy())
+    pick = torch.from_numpy(np.random.default_rng(14).choice(
+        pool, min(SHADOW_SAMPLES, len(pool)), replace=False)).to(DEVICE)
+    rays = cam.ray_directions().reshape(-1, 3)[pick]
+    view_z = (seen["depth"] / torch.clamp(alpha, min=1e-6)).reshape(-1)[pick]
+    pts = cam.center + rays * view_z[:, None] - 1e-2 * rays  # its bias
+    rot_t = torch.from_numpy(rot).to(DEVICE, torch.float64)
+    q = (pts.double() - torch.tensor(pose["pos"], dtype=torch.float64,
+                                     device=DEVICE)) @ rot_t  # body frame
+    dl = dirs.double() @ rot_t
+    t1 = (-CUBE_HALF - q[:, None, :]) / dl[None]  # ±inf along a face
+    t2 = (CUBE_HALF - q[:, None, :]) / dl[None]
+    t_in = torch.minimum(t1, t2).nan_to_num(nan=-np.inf).amax(-1)
+    t_out = torch.maximum(t1, t2).nan_to_num(nan=np.inf).amin(-1)
+    hit = (t_in <= t_out) & (t_out > 0)
+    plain = (weights.double() * ~hit).sum(-1) / weights.double().sum()
+    shadow_err = (ratio.reshape(-1)[pick].double() - plain).abs()
+    shadow_ok = float((shadow_err <= SHADOW_TOL).float().mean())
+    check(shadow_ok >= SHADOW_SHARE_MIN,
+          f"anchor frame: the shadow ratio matches a plain slab test on "
+          f"{shadow_ok:.4f} of {len(pick)} pixels outside the cube (at "
+          f"least {SHADOW_SHARE_MIN} wanted)")
+    shaded = float((ratio[outside] < 0.99).float().mean())
+    # the table top as camera 0 sees it: pixels whose point (the ray at
+    # the background's depth) lies on the top inside its footprint
+    flat = (cam.center + cam.ray_directions() * (seen["depth"] / torch.clamp(
+        alpha, min=1e-6))[..., None]).reshape(-1, 3).cpu().numpy()
+    n_top = int((inside_table(flat, 0.0)
+                 & (np.abs(flat[:, 2] - TABLE_TOP) < 0.02)).sum())
+    changed = int((diff > 0.1).sum())
+    changed_near = int(((diff > 0.1) & near).sum())
+
+    # kernels 1-3 once per render, and every render on a stage
+    check_launches(launches, {"preprocess": clock.renders,
+                              "duplicate_with_keys": clock.renders,
+                              "blend_fwd": clock.renders}, "edit program")
+    check(sum(v["renders"] for v in st.values()) == clock.renders,
+          f"edit program: {clock.renders} renders, "
+          f"{sum(v['renders'] for v in st.values())} of them on a stage")
+    check(st["preamble"]["renders"] == N_CAMS
+          and st["render_scene"]["renders"] == 2 * N_CAMS
+          and st["detect+extract"]["renders"] > 0
+          and st["physics"]["renders"] == 0, "edit program: renders a stage")
+
+    # one background pass and one object pass against the plain versions
+    err = {}
+    tx, ty = ops.projection.num_tiles(WIDTH, HEIGHT, EDIT_TILE)
+    rng = np.random.default_rng(13)
+    captured = []
+
+    def capture(g, c, bg=None):
+        captured.append(g)
+        return scene_cls.rasterize(scene, g, c, bg)
+
+    scene.rasterize = capture
+    scene.render_object_pass(anchor)
+    del scene.rasterize
+    for what, g in (("background", scene.gaussians), ("object", captured[0])):
+        s = ops.preprocess_cuda.preprocess_kernel(g, cam, tile=EDIT_TILE)
+        e = check_preprocess(s, ops.projection.preprocess(g, cam,
+                                                          tile=EDIT_TILE),
+                             f"edit program {what} pass")
+        err["preprocess"] = max(err.get("preprocess", 0.0), e)
+        err["duplicate_with_keys"] = max(
+            err.get("duplicate_with_keys", 0.0),
+            check_duplicates(P, s, tx, tx * ty, budget,
+                             f"edit program {what} pass"))
+        b = ops.binning.bin_splats(s, WIDTH, HEIGHT, budget, tile=EDIT_TILE)
+        check(not bool(b.overflow), f"edit program {what} pass: overflow")
+        images = ops.blend_cuda.blend_kernel(b, s, WIDTH, HEIGHT, EDIT_TILE)
+        tiles = torch.from_numpy(rng.choice(tx * ty, CHECK_TILES,
+                                            replace=False)).to(DEVICE)
+        err["blend_fwd"] = max(err.get("blend_fwd", 0.0), check_blend(
+            P, b, s, images, tiles, WIDTH, HEIGHT, EDIT_TILE,
+            f"edit program {what} pass"))
+        sync()
+    print(f"edit program: anchor frame {changed} pixels differ from the "
+          f"preamble by > 0.1, {changed_near} of them within "
+          f"{SILHOUETTE_OUTSET * px:.0f} px of the cube's silhouette; "
+          f"{in_changed:.3f} of the {int(core.sum())} inside it; "
+          f"{out_share:.3f} of the frame well outside it, {shaded:.3f} of "
+          f"that shadowed (ratio < 0.99), the composite there within "
+          f"{comp_off:.2e} of the shadowed background and the unshadowed "
+          f"within {lit_off:.5f} of the preamble; the background pass "
+          f"within {bg_off:.5f} of the preamble; the shadow ratio against "
+          f"the slab test on {shadow_ok:.4f} of {len(pick)} pixels "
+          f"(worst {float(shadow_err.max()):.2e}); {n_top} pixels see the "
+          f"table top; the cube's z " + ", ".join(f"{x:.4f}" for x in z)
+          + f" (rests at {rest} ± {margin}) at {xy}; the extracted table: "
+          f"{len(obj_mesh.faces)} triangles, object_gaussians.ply "
+          f"{len(picked)} splats ({split_off} of {int(exact.sum())} near the "
+          f"mesh off the brute-force split), {hits} of them the table's "
+          f"({share:.3f}; {recall:.3f} of the table's {EDIT_TABLE_SPLATS}); "
+          f"launches {launches} for {clock.renders} renders; "
+          f"the background and object passes' kernels against their plain "
+          f"versions ({CHECK_TILES} tiles each): ok")
+
+    # times
+    stage_txt = ", ".join(
+        f"{k} {v['s'] * 1000.0:.1f} ms ({v['renders']} renders)"
+        for k, v in st.items())
+    print(f"[{card}] edit program at {scene.gaussians.capacity} splats {WIDTH}x{HEIGHT} "
+          f"tile {EDIT_TILE}, {N_CAMS} frames: run_scene_editing "
+          f"{wall * 1000.0:.1f} ms wall; stages (wall): {stage_txt}; "
+          f"render_scene {st['render_scene']['s'] * 1000.0 / N_CAMS:.1f} ms "
+          f"a frame; peak device memory {peak / 2**30:.2f} GiB")
+
+    def frame():
+        c, d, a = scene.render_from_3DGS(frame_indices=[anchor])
+        return scene.render_frame(anchor, c[0], d[0], a[0])
+
+    for _ in range(WARMUP):
+        frame()
+    sync()
+    streamed = cuda_ms(frame, 5)
+    records = profiled(frame, 1)
+    busy = sum(e.duration_ns() for e in records) / 1e6
+    print(f"[{card}] edit program frame (background pass + render_frame): "
+          f"{streamed:.3f} ms (CUDA events), device busy {busy:.3f} ms, idle "
+          f"share {1.0 - busy / streamed:.3f}, {len(records)} device records")
+    c, d, a = (x[0] for x in scene.render_from_3DGS(frame_indices=[anchor]))
+    parts = {
+        "background pass": lambda: scene.render_from_3DGS(
+            frame_indices=[anchor]),
+        "object pass": lambda: scene.render_object_pass(anchor),
+        "shadow pass": lambda: scene.render_shadow_pass(anchor, d, a),
+    }
+    part_ms = {k: device_ms(fn, KERNEL_REPS, max_lost=1)
+               for k, fn in parts.items()}
+    print(f"[{card}] edit program frame by pass (device ms, profiler): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in part_ms.items())
+          + f"; the rest (composite) {busy - sum(part_ms.values()):.3f}")
+    tmp.cleanup()
+    return launches, err
+
+
 def physics_point(P, card: str, w, inp, config) -> None:
     """Physics substeps and the whole replay (simulate + render_clip) of
     the edited frame's clip.  Run last: the profiler's sessions after
@@ -2250,8 +2910,9 @@ def main() -> None:
     fx_launches, fx_err, fx_perf = effects_frame_point(P, card, edit)
     card_against_cpu(P)
     pano_launches, pano_err = panorama_point(P, card, edit["g"])
+    program_launches, program_err = edit_program_point(P, card)
     physics_point(P, card, edit["w"], edit["inp"], edit["config"])
-    for part in (train_err, edit_err, fx_err, pano_err):
+    for part in (train_err, edit_err, fx_err, pano_err, program_err):
         for k, e in part.items():
             err[k] = max(err.get(k, 0.0), e)
     ms.update(train_ms)
@@ -2266,7 +2927,8 @@ def main() -> None:
                    "training": train_launches[k],
                    "edited_frame": edit_launches[k],
                    "effects_frame": fx_launches[k],
-                   "panorama": pano_launches[k]}
+                   "panorama": pano_launches[k],
+                   "edit_program": program_launches[k]}
         main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],

@@ -701,3 +701,126 @@ def test_effects_cases_on_the_card_match_the_cpu(dev):
     """chip_smoke's card-against-CPU cases of the smoke, melt and LPIPS."""
     err = cs.card_against_cpu(P)
     assert set(err) == {"smoke fixed", "smoke adaptive", "melt", "lpips"}
+
+
+# ---- the edit layer ----------------------------------------------------------
+# tests/test_torch_edit.py's drop edit and tests/test_torch_extract.py's
+# extraction, made from files that the port writes, on the card and on the
+# CPU: the frames to the multi-pass bound, the same triangles and splats.
+
+CUBE = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
+                 for z in (-0.5, 0.5)], np.float32)
+
+
+def _edit_files(root, extraction=False):
+    """Splats, scene mesh and a 4-camera 64×48 ring as files: the drop
+    scene (a flat cloud over a ground quad), or with ``extraction`` a
+    box standing on it with 150 of the splats inside (the masks' object,
+    rows 300 on)."""
+    import os
+
+    from autovfx_tpu_torch.core import cameras, ply_io
+    from autovfx_tpu_torch.core.gaussians import merge
+    from autovfx_tpu_torch.edit import mesh_io
+
+    ground = make_gaussians(300 if extraction else 400,
+                            np.random.default_rng(0), spread=1.5,
+                            device="cpu")
+    xyz = ground.xyz.clone()
+    xyz[:, 2] = xyz[:, 2].abs() * 0.02
+    g = dataclasses.replace(ground, xyz=xyz)
+    gv = np.array([[-6, -6, 0], [6, -6, 0], [6, 6, 0], [-6, 6, 0]],
+                  np.float32)
+    gf = np.array([[0, 1, 2], [0, 2, 3]], np.int64)
+    v, f = gv, gf
+    if extraction:
+        box = make_gaussians(150, np.random.default_rng(1), spread=0.22,
+                             device="cpu")
+        g = merge(g, dataclasses.replace(
+            box, xyz=box.xyz + torch.tensor([0.0, 0.0, 0.5])))
+        v = np.concatenate([gv, CUBE + [0, 0, 0.5]])
+        f = np.concatenate([gf, cs.CUBE_FACES + 4])
+    ply_io.save_ply(os.path.join(root, "scene.ply"), g)
+    mesh_io.save_obj(os.path.join(root, "scene_mesh.obj"),
+                     mesh_io.Mesh(v.astype(np.float32), f))
+    mesh_io.save_obj(os.path.join(root, "cube.obj"),
+                     mesh_io.Mesh(CUBE, cs.CUBE_FACES))
+    cams = cameras.stack_cameras([
+        look_at_camera([2.6 * np.cos(a), 2.6 * np.sin(a), 1.6],
+                       [0, 0, 0.4], [0, 0, 1], fx=60.0, fy=60.0, width=64,
+                       height=48, device="cpu")
+        for a in np.linspace(0, np.pi / 2, 4)])
+    cameras.save_custom_trajectory(
+        os.path.join(root, "custom_camera_path", "ring.json"), cams)
+    return g, cams, dict(
+        source_path=root, gaussians_ckpt_path=os.path.join(root, "scene.ply"),
+        scene_mesh_path=os.path.join(root, "scene_mesh.obj"),
+        custom_traj_name="ring", dup_budget=1 << 18, light_samples=8)
+
+
+def _scenes(root, params):
+    import os
+
+    from autovfx_tpu_torch.edit.scene_representation import (
+        SceneParams, SceneRepresentation)
+
+    return {dev: SceneRepresentation(SceneParams(
+        cache_dir=os.path.join(root, dev), device=dev, **params))
+        for dev in ("cuda", "cpu")}
+
+
+def test_drop_edit_on_the_card_matches_the_cpu(dev, tmp_path):
+    import os
+
+    from autovfx_tpu_torch.edit import edit_utils as EU
+    from autovfx_tpu_torch.edit.edit_ir import default_object_info
+
+    _, _, params = _edit_files(str(tmp_path))
+    scenes = _scenes(str(tmp_path), params)
+    frames = {}
+    for d, scene in scenes.items():
+        obj = default_object_info()
+        obj.update(object_id="cube", object_name="cube",
+                   object_path=os.path.join(str(tmp_path), "cube.obj"),
+                   pos=np.array([0.0, 0.0, 1.2], np.float32), scale=0.3)
+        EU.insert_object(scene, EU.allow_physics(obj))
+        frames[d] = scene.render_scene()
+        assert frames[d].device.type == d and not bool(scene.overflowed)
+    for i in range(4):
+        _frames_agree(frames["cuda"][i], frames["cpu"][i])
+    rb = {d: s.rb_transform["cube"] for d, s in scenes.items()}
+    for f in rb["cpu"]:
+        assert np.abs(np.subtract(rb["cuda"][f]["pos"],
+                                  rb["cpu"][f]["pos"])).max() < 1e-3
+
+
+def test_extraction_on_the_card_matches_the_cpu(dev, tmp_path):
+    import os
+
+    from autovfx_tpu_torch.core.cameras import index_camera
+    from autovfx_tpu_torch.edit import mesh_io
+    from autovfx_tpu_torch.perception import extract
+    from autovfx_tpu_torch.utils import png
+
+    g, cams, params = _edit_files(str(tmp_path), extraction=True)
+    scenes = _scenes(str(tmp_path), params)
+    box = dataclasses.replace(g, active=torch.arange(g.capacity) >= 300)
+    paths = {}
+    for d, scene in scenes.items():
+        tdir = os.path.join(scene.tracking_results_dir, "box", "1")
+        os.makedirs(tdir)
+        for i in range(4):
+            alpha = P.rasterize(box, index_camera(cams, i),
+                                config=P.RasterConfig(1 << 14)).alpha
+            png.write_png(os.path.join(tdir, f"{i:05d}.png"),
+                          (alpha.numpy() > 0.4).astype(np.uint8) * 255)
+        paths[d] = extract.extract_object_from_scene(scene, "box", 1)
+    base = {d: os.path.dirname(os.path.dirname(p)) for d, p in paths.items()}
+    got, want = (mesh_io.load_mesh(paths[d]) for d in ("cuda", "cpu"))
+    assert len(want.faces) > 0
+    np.testing.assert_array_equal(got.faces, want.faces)
+    np.testing.assert_array_equal(got.vertices, want.vertices)
+    for name in ("object_gaussians.ply", "removal_gaussians.ply"):
+        with open(os.path.join(base["cuda"], name), "rb") as a, \
+                open(os.path.join(base["cpu"], name), "rb") as b:
+            assert a.read() == b.read(), name

@@ -63,6 +63,35 @@ RENDER_500 = textwrap.dedent("""
     clip = CL.render_clip(inp, 2, P.RasterConfig(dup_budget=1 << 14),
                           fused=True)
     assert clip.shape == (2, 48, 64, 3) and torch.isfinite(clip).all()
+    # the edit layer: a 2-frame drop edit from files, through render_scene
+    import os, tempfile
+    from autovfx_tpu_torch.core import cameras as C, ply_io
+    from autovfx_tpu_torch.edit import edit_utils as EU, mesh_io
+    from autovfx_tpu_torch.edit.edit_ir import default_object_info
+    from autovfx_tpu_torch.edit.scene_representation import (
+        SceneParams, SceneRepresentation)
+    root = tempfile.mkdtemp()
+    ply_io.save_ply(os.path.join(root, "scene.ply"), g)
+    mesh_io.save_obj(os.path.join(root, "ground.obj"),
+                     mesh_io.Mesh(ground, np.array([[0, 1, 2], [0, 2, 3]])))
+    mesh_io.save_obj(os.path.join(root, "cube.obj"),
+                     mesh_io.Mesh(corners, faces))
+    C.save_custom_trajectory(
+        os.path.join(root, "custom_camera_path", "ring.json"), cam_batch)
+    scene = SceneRepresentation(SceneParams(
+        source_path=root, gaussians_ckpt_path=os.path.join(root, "scene.ply"),
+        scene_mesh_path=os.path.join(root, "ground.obj"),
+        custom_traj_name="ring", dup_budget=1 << 17, light_samples=4,
+        cache_dir=os.path.join(root, "cache"), device="cpu"))
+    obj = default_object_info()
+    obj.update(object_id="cube", object_name="cube",
+               object_path=os.path.join(root, "cube.obj"),
+               pos=np.array([0.0, 0.0, 1.0], np.float32), scale=0.4)
+    EU.insert_object(scene, EU.allow_physics(obj))
+    edit = scene.render_scene()
+    assert edit.shape == (2, 48, 64, 3) and torch.isfinite(edit).all()
+    assert os.path.exists(os.path.join(root, "cache", "edit_config.json"))
+    assert not bool(scene.overflowed)
     blocked = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "autovfx_tpu")
                and sys.modules[m] is not None]
@@ -149,12 +178,26 @@ def test_kernel_sources_ship_with_the_package():
         assert f'extern "C" int {name}(' in text, name
 
 
+def test_prompts_ship_with_the_package():
+    """The planner prompts sit in the package and are its package data."""
+    import glob
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    pkg = os.path.dirname(autovfx_tpu_torch.__file__)
+    found = {os.path.relpath(p, pkg) for pattern in data["autovfx_tpu_torch"]
+             for p in glob.glob(os.path.join(pkg, pattern))}
+    assert {"gpt/prompts/planner_prompt.txt",
+            "gpt/prompts/planner_prompt_waymo.txt"} <= found
+
+
 def _entry_points():
     """The loaders and constructors that put tensors on a device."""
     from autovfx_tpu_torch import convert
     from autovfx_tpu_torch.core import cameras, ply_io
     from autovfx_tpu_torch.physics import shapes, world
-    from autovfx_tpu_torch.render import clip, ibl, meshsplat
+    from autovfx_tpu_torch.render import clip, emitter, ibl, meshsplat
     from autovfx_tpu_torch.train import checkpoint, densify, init_points
     from autovfx_tpu_torch.utils import synthetic
 
@@ -169,6 +212,11 @@ def _entry_points():
         "ray_mesh_init_points": init_points.ray_mesh_init_points,
         "convert.clip_inputs": convert.clip_inputs,
         "load_ply": ply_io.load_ply,
+        "load_gaussians": ply_io.load_gaussians,
+        "load_sugar_pt": ply_io.load_sugar_pt,
+        "load_npz": ply_io.load_npz,
+        "load_custom_trajectory": cameras.load_custom_trajectory,
+        "load_emitter": emitter.load_emitter,
         "load_checkpoint": checkpoint.load_checkpoint,
         "convert.gaussians": convert.gaussians,
         "convert.camera": convert.camera,
@@ -194,9 +242,11 @@ def _calls(tmp_path):
     """Each entry point's call with no device named, on inputs made on
     the CPU."""
     import numpy as np
+    import torch
 
     from autovfx_tpu_torch import convert
     from autovfx_tpu_torch.core import cameras, ply_io
+    from autovfx_tpu_torch.edit import mesh_io
     from autovfx_tpu_torch.train import checkpoint, trainer
     from autovfx_tpu_torch.utils import synthetic
 
@@ -207,6 +257,19 @@ def _calls(tmp_path):
                                  device="cpu")
     ply = str(tmp_path / "g.ply")
     ply_io.save_ply(ply, g)
+    pt = str(tmp_path / "sugar.pt")
+    torch.save({"_points": g.xyz, "all_densities": g.opacity_logit[:, None],
+                "_sh_coordinates_dc": g.sh_dc[:, None],
+                "_sh_coordinates_rest": g.sh_rest, "_scales": g.log_scales,
+                "_quaternions": g.quats}, pt)
+    npz = str(tmp_path / "g.npz")
+    ply_io.save_npz(npz, g)
+    traj = str(tmp_path / "traj.json")
+    cameras.save_custom_trajectory(traj, cameras.stack_cameras([cam, cam]))
+    emitter_obj = str(tmp_path / "emitter.obj")
+    mesh_io.save_obj(emitter_obj, mesh_io.Mesh(
+        np.array([[0, 0, 1], [1, 0, 1], [0, 1, 1]], np.float32),
+        np.array([[0, 1, 2]])))
     ckpt = str(tmp_path / "state.npz")
     state = trainer.init_state(g)
     checkpoint.save_checkpoint(ckpt, state)
@@ -246,6 +309,12 @@ def _calls(tmp_path):
         "convert.clip_inputs": lambda: fns["convert.clip_inputs"](
             clip_arrays, g, cam_batch).light_dirs,
         "load_ply": lambda: fns["load_ply"](ply),
+        "load_gaussians": lambda: fns["load_gaussians"](ply),
+        "load_sugar_pt": lambda: fns["load_sugar_pt"](pt),
+        "load_npz": lambda: fns["load_npz"](npz),
+        "load_custom_trajectory": lambda: fns["load_custom_trajectory"](
+            traj)[0],
+        "load_emitter": lambda: fns["load_emitter"](emitter_obj, 8),
         "load_checkpoint": lambda: fns["load_checkpoint"](ckpt),
         "convert.gaussians": lambda: fns["convert.gaussians"](g_arrays),
         "convert.camera": lambda: fns["convert.camera"](cam_arrays),
@@ -307,3 +376,24 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FALLBACK", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.find_nvcc()
+
+
+def test_scene_and_cli_default_to_the_card(tmp_path):
+    """``SceneParams`` and the CLI's ``--device`` default to the card;
+    without one, the scene and ``run_scene_editing`` raise an error that
+    names the remedy."""
+    import torch
+
+    from autovfx_tpu_torch import edit_scene
+    from autovfx_tpu_torch.edit import scene_representation as SR
+
+    opts = edit_scene.get_opts(["--gaussians_ckpt_path", "g.ply",
+                                "--edit_text", "drop a cube",
+                                "--model_path", str(tmp_path)])
+    assert SR.SceneParams().device == "cuda" and opts.device == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SR.SceneRepresentation(SR.SceneParams(cache_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        edit_scene.run_scene_editing(opts, opts.edit_text)

@@ -368,8 +368,6 @@ def test_emitter_irradiance_matches_jax():
         JEM.emitter_irradiance(jnp.asarray(pts), jnp.asarray(n),
                                JEM.EmitterLights(**{k: jnp.asarray(x)
                                                     for k, x in em.items()})))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        EM.load_emitter("emitter.obj")
 
 
 # ---- shadow -------------------------------------------------------------------
