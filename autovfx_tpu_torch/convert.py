@@ -5,7 +5,8 @@ Takes plain arrays (``np.asarray`` of each field of another package's
 returns this package's dataclasses on a chosen device; ``train_state``
 takes a whole training state in the arrays of a checkpoint,
 ``clip_inputs`` an edited clip's inputs (with its smoke volume and melt
-tracers) and ``lpips_params`` the LPIPS network's weights.  Only
+tracers), ``lpips_params`` the LPIPS network's weights and
+``lama_params_from_jax`` the LaMa generator's.  Only
 arrays cross the boundary, so nothing here imports another framework.
 """
 from __future__ import annotations
@@ -136,3 +137,41 @@ def lpips_params(convs, lins, source: str, *, device=devices.DEFAULT):
     return LPIPSParams(convs=tuple(out),
                        lins=tuple(_f32(x, device) for x in lins),
                        source=str(source))
+
+
+def lama_params_from_jax(params, *, device=devices.DEFAULT):
+    """A ``perception.lama.LamaParams`` from the JAX package's converted
+    LaMa weights (its ``LamaParams`` with numpy leaves, read by
+    attribute): the HWIO convolutions become OIHW, the transposed
+    convolutions' pre-flipped HWIO kernels torch's (I, O, kh, kw) again,
+    and each folded BatchNorm's (C,) scale and shift (C, 1, 1)."""
+    from autovfx_tpu_torch.perception.lama import LamaParams
+
+    device = devices.resolve(device)
+    oihw = lambda w: _f32(np.asarray(w, np.float32).transpose(3, 2, 0, 1),
+                          device)
+    bn = lambda p: None if p is None else tuple(
+        _f32(x, device)[:, None, None] for x in p)
+
+    def ffc(p):
+        out = {k: None if p[k] is None else oihw(p[k])
+               for k in ("l2l", "l2g", "g2l")}
+        g = p["g2g"]
+        out["g2g"] = None if g is None else {
+            "conv1": oihw(g["conv1"]), "bn1": bn(g["bn1"]),
+            "fu": oihw(g["fu"]), "fu_bn": bn(g["fu_bn"]),
+            "conv2": oihw(g["conv2"])}
+        out.update(bn_l=bn(p["bn_l"]), bn_g=bn(p["bn_g"]))
+        return out
+
+    def up(u):
+        w = np.asarray(u["w"], np.float32).transpose(2, 3, 0, 1)
+        return {"w": _f32(w[:, :, ::-1, ::-1].copy(), device),
+                "b": _f32(u["b"], device), "bn": bn(u["bn"])}
+
+    return LamaParams(
+        init=ffc(params.init), down=[ffc(d) for d in params.down],
+        blocks=[{k: ffc(b[k]) for k in ("conv1", "conv2")}
+                for b in params.blocks],
+        up=[up(u) for u in params.up], out_w=oihw(params.out_w),
+        out_b=_f32(params.out_b, device))

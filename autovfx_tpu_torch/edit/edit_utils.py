@@ -3,11 +3,11 @@
 Counterpart of ``autovfx_tpu/edit/edit_utils.py``, with the same names,
 signatures and draws from Python's ``random`` and numpy's global state,
 in the same order, so a run seeded alike picks the same values.
-``detect_object`` runs the port's extraction (kernels 1-3 on the scene's
-device).  Asset and material retrieval and object removal
-(``retrieve_asset``, ``remove_object``, ``update_object``'s removal,
-``retrieve_material``, ``retrieve_chatsim_asset``) are slice 7b of
-ROADMAP.md's queue 1 and raise ``NotImplementedError``.
+``detect_object`` runs the port's extraction, ``remove_object`` the
+removal renders, LaMa and the retraining, and ``retrieve_asset`` the
+asset previews, all on the scene's device (kernels 1-4 and the
+preprocess backward on the card); retrieval itself is the local index
+and library of ``retrieval.wrappers``.
 """
 from __future__ import annotations
 
@@ -43,13 +43,6 @@ class Material:
         self.material_path = material_path
         self.is_mirror = is_mirror
         self.rgb = rgb
-
-
-def _slice_7b(name: str, reference: str):
-    raise NotImplementedError(
-        f"{name} needs asset retrieval or object removal, slice 7b of "
-        f"ROADMAP.md's queue 1, not ported yet (the JAX package's "
-        f"{reference})")
 
 
 def _new_id() -> str:
@@ -178,11 +171,59 @@ def retrieve_asset(
     scene_representation, object_name, is_animated=False, is_generated=False
 ):
     """Retrieve a 3D asset (edit_utils.py:208-251): Objaverse/Meshy lookup,
-    4-view preview render, GPT-4V scale & forward-axis estimates; scale is
-    divided by scene_scale (:249).
-    Not ported yet: raises ``NotImplementedError`` (slice 7b).
-    """
-    _slice_7b("retrieve_asset", "autovfx_tpu/edit/edit_utils.py:162")
+    4-view preview render (on the scene's device), GPT-4V scale &
+    forward-axis estimates; scale is divided by scene_scale (:249)."""
+    from autovfx_tpu_torch.retrieval.wrappers import (
+        retrieve_asset_from_meshy,
+        retrieve_asset_from_objaverse,
+    )
+    from autovfx_tpu_torch.perception.gpt4v import (
+        estimate_object_forward_axis,
+        estimate_object_scale,
+    )
+    from autovfx_tpu_torch.render.preview import render_asset_previews
+
+    if is_generated:
+        assert not is_animated, "Generated object cannot be animated."
+        obj_info = retrieve_asset_from_meshy(object_name)
+    else:
+        obj_info = retrieve_asset_from_objaverse(
+            object_name, is_animated=is_animated
+        )
+    new_obj = default_object_info()
+    new_obj["object_name"] = object_name
+    new_obj["object_id"] = obj_info["object_id"]
+    new_obj["object_path"] = obj_info["object_path"]
+    new_obj["from_3DGS"] = False
+
+    preview_dir = os.path.join(
+        scene_representation.cache_dir, "assets_rendering_multi_views"
+    )
+    img_folder = render_asset_previews(
+        obj_info["object_path"], preview_dir, obj_info["object_id"],
+        num_views=4, device=scene_representation.device,
+    )
+
+    forward_axis = "TRACK_NEGATIVE_Y"
+    if is_animated:
+        forward_axis = estimate_object_forward_axis(img_folder, object_name)
+        print(f"Estimated forward axis of {object_name} is {forward_axis}.")
+    axis_to_index = {
+        "TRACK_NEGATIVE_Y": 0,
+        "FORWARD_X": 1,
+        "FORWARD_Y": 2,
+        "TRACK_NEGATIVE_X": 3,
+    }
+    import glob as _glob
+
+    imgs = sorted(_glob.glob(os.path.join(img_folder, "*.png")))
+    img_path = imgs[axis_to_index[forward_axis]] if imgs else None
+    object_scale = estimate_object_scale(img_path, object_name)
+    print(f"Estimated scale of {object_name} is {object_scale} meters.")
+
+    new_obj["forward_axis"] = forward_axis
+    new_obj["scale"] = object_scale / scene_representation.scene_scale
+    return new_obj
 
 
 # ---- state mutation (pure bookkeeping) --------------------------------------------
@@ -197,11 +238,45 @@ def insert_object(scene_representation, obj):
 
 
 def remove_object(scene_representation, obj, remove_gaussians=True):
-    """edit_utils.py:262-290: swap scene mesh for the inpainted one and
-    (optionally) retrain removal gaussians on inpainted renders.
-    Not ported yet: raises ``NotImplementedError`` (slice 7b).
-    """
-    _slice_7b("remove_object", "autovfx_tpu/edit/edit_utils.py:231")
+    """edit_utils.py:262-290: swap the scene mesh for the inpainted one
+    and (optionally) retrain the removal splats on the inpainted views,
+    then reload the scene from ``inpaint_gaussians.ply``.  Each stage's
+    output that exists is reused."""
+    from autovfx_tpu_torch.perception.extract import inpaint_object
+
+    obj_path = obj["object_path"]
+    base_folder = os.path.dirname(os.path.dirname(obj_path))
+    obj_name = os.path.basename(os.path.dirname(base_folder))
+    obj_id = os.path.basename(base_folder)
+
+    new_scene_mesh_path = os.path.join(
+        base_folder, "inpaint_removal_mesh/inpaint_removal_mesh.obj"
+    )
+    if not os.path.exists(new_scene_mesh_path):
+        inpaint_object(scene_representation, obj_name, obj_id)
+    scene_representation.scene_mesh_path_for_blender = new_scene_mesh_path
+
+    if remove_gaussians:
+        new_gaussians_path = os.path.join(base_folder, "inpaint_gaussians.ply")
+        if not os.path.exists(new_gaussians_path):
+            from autovfx_tpu_torch.train.inpaint_retrain import (
+                training_3DGS_for_inpainting,
+            )
+
+            training_3DGS_for_inpainting(
+                scene_representation,
+                os.path.join(base_folder, "removal_gaussians.ply"),
+                os.path.join(base_folder, "render_inpaint_lama"),
+                os.path.join(base_folder, "render_inpaint_mask"),
+                base_folder,
+                os.path.join(base_folder, "inpaint_camera_poses.json"),
+                device=scene_representation.device,
+            )
+        scene_representation.hparams.gaussians_ckpt_path = new_gaussians_path
+        scene_representation.load_scene()
+    print(
+        "Removing object: {} {}".format(obj["object_name"], obj["object_id"])
+    )
 
 
 def update_object(scene_representation, obj):
@@ -283,10 +358,12 @@ def set_moving_animation(obj, points):
 
 
 def retrieve_material(scene_representation, material_name):
-    """edit_utils.py:366-372 (PolyHaven folder by SBERT name similarity).
-    Not ported yet: raises ``NotImplementedError`` (slice 7b).
-    """
-    _slice_7b("retrieve_material", "autovfx_tpu/edit/edit_utils.py:348")
+    """edit_utils.py:366-372 (PolyHaven folder by SBERT name similarity)."""
+    from autovfx_tpu_torch.retrieval.wrappers import (
+        retrieve_materials_from_polyhaven,
+    )
+
+    return retrieve_materials_from_polyhaven(material_name)
 
 
 def init_material():
@@ -476,7 +553,15 @@ def get_direction(scene_representation, direction="front"):
 
 
 def retrieve_chatsim_asset(scene_representation, object_name):
-    """edit_utils.py:583-616: look up the ChatSim vehicle bank.
-    Not ported yet: raises ``NotImplementedError`` (slice 7b).
-    """
-    _slice_7b("retrieve_chatsim_asset", "autovfx_tpu/edit/edit_utils.py:541")
+    """edit_utils.py:583-616: look up the ChatSim vehicle bank."""
+    from autovfx_tpu_torch.retrieval.wrappers import retrieve_chatsim_vehicle
+
+    info = retrieve_chatsim_vehicle(object_name)
+    new_obj = default_object_info()
+    new_obj["object_name"] = object_name
+    new_obj["object_id"] = info["object_id"]
+    new_obj["object_path"] = info["object_path"]
+    new_obj["from_3DGS"] = False
+    new_obj["scale"] = 1.0 / scene_representation.scene_scale
+    new_obj["forward_axis"] = info.get("forward_axis", "TRACK_NEGATIVE_Y")
+    return new_obj

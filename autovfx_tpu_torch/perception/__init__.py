@@ -1,1 +1,2 @@
-"""Perception: precomputed instance masks and object extraction."""
+"""Perception: precomputed instance masks, object extraction, LaMa
+inpainting and the GPT-4V estimates."""

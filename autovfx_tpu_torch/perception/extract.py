@@ -1,8 +1,7 @@
 """Object extraction from the scene: masks -> triangle votes -> meshes and
 splats.
 
-Counterpart of ``autovfx_tpu/perception/extract.py`` (``inpaint_object``,
-object removal, is slice 7b of ROADMAP.md's queue 1 and not here):
+Counterpart of ``autovfx_tpu/perception/extract.py``:
 
 - ``extract_object_from_scene``: per-frame DEVA masks -> rays through
   mask pixels -> first-hit triangles on the scene mesh -> per-triangle
@@ -11,14 +10,19 @@ object removal, is slice 7b of ROADMAP.md's queue 1 and not here):
   object_mesh.obj / removal_mesh.obj / object_gaussians.ply /
   removal_gaussians.ply.
 - ``get_largest_object``: the instance with the most mask pixels.
+- ``inpaint_object``: object removal's inputs, a planar convex-hull patch
+  at the object's z-min merged into the removal mesh, and for each view
+  the removal splats' render, its hole (alpha < 0.3) and its LaMa
+  inpaint, written as PNGs with the views' poses.
 
 The votes, the splat-to-triangle map and the sweep's renders (kernels
 1-3 through the scene's ``rasterize`` on the card) stay on the scene's
-device; only the exported meshes and PLYs go through the host.
+device; only the exported meshes, PLYs and PNGs go through the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -28,7 +32,11 @@ from autovfx_tpu_torch.core import cameras as C
 from autovfx_tpu_torch.core import ply_io
 from autovfx_tpu_torch.edit import mesh_io
 from autovfx_tpu_torch.ops.raymesh import ray_mesh_first_hit
-from autovfx_tpu_torch.perception.wrappers import load_instance_masks
+from autovfx_tpu_torch.perception.wrappers import (
+    inpaint_img_with_lama,
+    load_instance_masks,
+)
+from autovfx_tpu_torch.utils import png
 
 VOTE_THRESHOLDS = np.linspace(0.05, 0.95, 22)  # the sweep
 RAY_STRIDE = 4  # subsample mask pixels for ray casting
@@ -278,3 +286,82 @@ def extract_object_from_single_view(scene_representation, object_name, mask):
     t, _, hit = ray_mesh_first_hit(o, d, *_triangles(scene_mesh, sr.device))
     pts = o[hit] + d[hit] * t[hit, None]
     return pts.cpu().numpy()
+
+
+HOLE_ALPHA = 0.3  # a removal render's pixels below this alpha are the hole
+MAX_INPAINT_VIEWS = 24
+
+
+def inpaint_object(scene_representation, object_name: str, obj_id) -> str:
+    """Close the removal hole and make the inpainted training views under
+    ``<cache>/extract/<name>/<id>/``; returns that directory.
+
+    The patch is the convex hull of the object mesh's footprint (x, y)
+    at its lowest z, fanned from the hull's mean, appended to the
+    removal mesh as ``inpaint_removal_mesh/inpaint_removal_mesh.obj``.
+    For each of the first min(frames, 24) views, the removal splats are
+    rendered through the scene's ``rasterize`` (kernels 1-3 on the card),
+    the pixels with alpha < 0.3 are the hole, and LaMa fills it on the
+    scene's device: ``render_inpaint_lama/<i>.png``,
+    ``render_inpaint_mask/<i>.png`` and ``inpaint_camera_poses.json``
+    (the trajectory format, the views' OpenCV c2w)."""
+    from scipy.spatial import ConvexHull
+
+    sr = scene_representation
+    base = os.path.join(sr.cache_dir, "extract",
+                        "_".join(object_name.split(" ")), str(obj_id))
+    removal = mesh_io.load_mesh(
+        os.path.join(base, "removal_mesh", "removal_mesh.obj"))
+    obj_mesh = mesh_io.load_mesh(
+        os.path.join(base, "object_mesh", "object_mesh.obj"))
+
+    z_min = float(obj_mesh.vertices[:, 2].min())
+    xy = obj_mesh.vertices[:, :2]
+    ring = xy[ConvexHull(xy).vertices]
+    center = ring.mean(axis=0)
+    patch_v = np.concatenate(
+        [np.array([[center[0], center[1], z_min]]),
+         np.column_stack([ring, np.full(len(ring), z_min)])]).astype(np.float32)
+    n = len(ring)
+    patch_f = np.array([[0, 1 + i, 1 + (i + 1) % n] for i in range(n)],
+                       np.int64)
+    merged = mesh_io.Mesh(
+        vertices=np.concatenate([removal.vertices, patch_v]),
+        faces=np.concatenate([removal.faces, patch_f + len(removal.vertices)]),
+        vertex_colors=None)
+    out_dir = os.path.join(base, "inpaint_removal_mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    mesh_io.save_obj(os.path.join(out_dir, "inpaint_removal_mesh.obj"), merged)
+
+    lama_dir = os.path.join(base, "render_inpaint_lama")
+    mask_dir = os.path.join(base, "render_inpaint_mask")
+    os.makedirs(lama_dir, exist_ok=True)
+    os.makedirs(mask_dir, exist_ok=True)
+    g_removal = ply_io.load_gaussians(
+        os.path.join(base, "removal_gaussians.ply"), device=sr.device)
+    cam_poses = []
+    for fi in range(min(sr.total_frames, MAX_INPAINT_VIEWS)):
+        cam = C.index_camera(sr.cameras, fi)
+        out = sr.rasterize(g_removal, cam)
+        rgb = torch.clamp(out.color, 0, 1).cpu().numpy()
+        hole = (out.alpha < HOLE_ALPHA).cpu().numpy()
+        name = f"{fi:05d}.png"
+        inpainted = inpaint_img_with_lama(
+            rgb, hole, cache_path=os.path.join(lama_dir, name),
+            device=sr.device)
+        png.write_png(os.path.join(lama_dir, name), np.asarray(inpainted,
+                                                                np.uint8))
+        png.write_png(os.path.join(mask_dir, name),
+                      hole.astype(np.uint8) * 255)
+        cam_poses.append(cam.c2w.cpu().numpy().tolist())
+
+    cam0 = C.index_camera(sr.cameras, 0)
+    with open(os.path.join(base, "inpaint_camera_poses.json"), "w") as f:
+        json.dump({
+            "fl_x": float(cam0.fx), "fl_y": float(cam0.fy),
+            "cx": float(cam0.cx), "cy": float(cam0.cy),
+            "w": int(sr.cameras.width), "h": int(sr.cameras.height),
+            "frames": [{"filename": f"{i:05d}.png", "transform_matrix": m}
+                       for i, m in enumerate(cam_poses)],
+        }, f)
+    return base

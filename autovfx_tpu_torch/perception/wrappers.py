@@ -1,5 +1,5 @@
-"""Perception-model wrappers, the mask side: DEVA instance masks and the
-DiffusionLight envmap, consumed as precomputed files.
+"""Perception-model wrappers: DEVA instance masks, the inpainters and the
+DiffusionLight envmap.
 
 Counterpart of ``autovfx_tpu/perception/wrappers.py``.  The external
 perception nets are not part of the package; each wrapper keeps the
@@ -8,22 +8,26 @@ precomputed artefacts:
 
 - run_deva: <out_dir>/<object_name_underscored>/<instance_id>/<frame>.png
   binary masks (read with ``utils.png``, no image library);
+- inpaint_img_with_lama: (H, W, 3) uint8 inpainted image, from a cached
+  PNG, the port's big-lama network (``perception.lama``) or OpenCV's
+  TELEA inpaint, in that order;
 - get_envmap_from_single_view: <output_dir>/envmap_cam.npy (or .exr /
   .hdr), rotated into the world frame.
 
-The inpainting wrappers (``inpaint_img_with_lama``, ``inpaint_img``,
-``fill_img_with_sd``) belong to object removal, slice 7b of ROADMAP.md's
-queue 1, and raise ``NotImplementedError`` here.
+Images are read and written with ``utils.png``: the machine with the card
+has no image library.
 """
 from __future__ import annotations
 
 import glob
+import importlib.util
 import os
 import shutil
 from typing import List, Optional
 
 import numpy as np
 
+from autovfx_tpu_torch.core import device as devices
 from autovfx_tpu_torch.utils import png
 
 
@@ -143,19 +147,62 @@ def merge_instances(tracking_dir: str, overlap_ratio: float = 0.7) -> List[int]:
     return sorted(ids)
 
 
-def _slice_7b(name: str, reference: str):
-    raise NotImplementedError(
-        f"{name} is object removal's inpainting, slice 7b of ROADMAP.md's "
-        f"queue 1, not ported yet (the JAX package's {reference})")
+def _read_rgb(path: str) -> np.ndarray:
+    """A PNG as (H, W, 3) uint8 RGB (greyscale spread, alpha dropped)."""
+    img = png.read_png(path)
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    if img.shape[2] == 2:  # greyscale + alpha
+        return np.repeat(img[..., :1], 3, axis=2)
+    return img[..., :3]
+
+
+def _read_rgba(path: str) -> np.ndarray:
+    """A PNG as (H, W, 4) uint8 RGBA (opaque where it has no alpha)."""
+    img = png.read_png(path)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[2] in (1, 2):  # greyscale [+ alpha]
+        grey = np.repeat(img[..., :1], 3, axis=2)
+        alpha = img[..., 1:] if img.shape[2] == 2 else None
+        img = grey if alpha is None else np.concatenate([grey, alpha], 2)
+    if img.shape[2] == 3:
+        img = np.concatenate(
+            [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=2)
+    return img
 
 
 def inpaint_img_with_lama(
     img: np.ndarray, mask: np.ndarray, *, cache_path: Optional[str] = None,
-    ckpt_path: Optional[str] = None,
+    ckpt_path: Optional[str] = None, device=devices.DEFAULT,
 ) -> np.ndarray:
-    """LaMa inpainting: slice 7b."""
-    _slice_7b("inpaint_img_with_lama",
-              "autovfx_tpu/perception/wrappers.py:166")
+    """LaMa inpainting: (H, W, 3) uint8 or [0, 1] float image and an
+    (H, W) mask (nonzero is the hole) -> (H, W, 3) uint8.
+
+    Resolution order, the reference's: a precomputed result at
+    ``cache_path``; the big-lama network (``perception.lama``) on
+    ``device`` when a checkpoint resolves (``ckpt_path``,
+    ``$AUTOVFX_LAMA_CKPT`` or ``~/.cache/autovfx/big-lama``); OpenCV's
+    TELEA inpaint when ``cv2`` imports; otherwise an error.  LaMa, once
+    a checkpoint resolves, never gives way to TELEA."""
+    if cache_path and os.path.exists(cache_path):
+        return _read_rgb(cache_path)
+    from autovfx_tpu_torch.perception import lama
+
+    out = lama.try_inpaint(img, mask, ckpt_path=ckpt_path, device=device)
+    if out is not None:
+        return out
+    try:
+        import cv2
+    except ImportError as e:
+        raise PrecomputedInputMissing(
+            "no LaMa checkpoint (set $AUTOVFX_LAMA_CKPT to a big-lama "
+            "checkpoint or directory) and no OpenCV (cv2) for the TELEA "
+            "inpaint") from e
+    img8 = (img if img.dtype == np.uint8
+            else np.clip(img * 255, 0, 255).astype(np.uint8))
+    m8 = (np.asarray(mask) > 0).astype(np.uint8) * 255
+    return cv2.inpaint(img8, m8, 7, cv2.INPAINT_TELEA)
 
 
 def inpaint_img(
@@ -164,9 +211,31 @@ def inpaint_img(
     dilate_kernel_size: int = 10,
     erode_kernel_size: int = 0,
     alpha_threshold: float = 0.7,
+    device=devices.DEFAULT,
 ) -> str:
-    """Alpha-mask panorama inpaint: slice 7b."""
-    _slice_7b("inpaint_img", "autovfx_tpu/perception/wrappers.py:198")
+    """Alpha-mask panorama inpaint: the pixels whose alpha falls below
+    ``alpha_threshold`` form the hole, eroded and dilated (square
+    structuring elements) against edge fringing, and the RGB is
+    inpainted (``inpaint_img_with_lama``).  Writes ``<img>_mask.png`` and
+    ``<img>_inpaint.png`` and returns the inpainted path, the
+    reference's file contract."""
+    from scipy import ndimage
+
+    rgba = _read_rgba(img_path)
+    mask = rgba[..., 3] < alpha_threshold * 255
+    if erode_kernel_size:
+        mask = ndimage.binary_erosion(
+            mask, np.ones((erode_kernel_size,) * 2, bool))
+    if dilate_kernel_size:
+        mask = ndimage.binary_dilation(
+            mask, np.ones((dilate_kernel_size,) * 2, bool))
+    mask8 = mask.astype(np.uint8) * 255
+    base = img_path[:-4]
+    png.write_png(base + "_mask.png", mask8)
+    out = inpaint_img_with_lama(rgba[..., :3], mask8, device=device)
+    out_path = base + "_inpaint.png"
+    png.write_png(out_path, np.asarray(out, np.uint8))
+    return out_path
 
 
 def fill_img_with_sd(
@@ -174,9 +243,32 @@ def fill_img_with_sd(
     mask: np.ndarray,
     text_prompt: str,
     cache_path: Optional[str] = None,
+    device=devices.DEFAULT,
 ) -> np.ndarray:
-    """Stable-Diffusion inpainting: slice 7b."""
-    _slice_7b("fill_img_with_sd", "autovfx_tpu/perception/wrappers.py:234")
+    """Stable-Diffusion inpainting, an external network: a precomputed
+    result at ``cache_path`` first; the diffusers pipeline when
+    downloads are opted in (``AUTOVFX_ALLOW_HUB_DOWNLOAD=1``) and it
+    imports; else ``inpaint_img_with_lama``, with the same contract."""
+    if cache_path and os.path.exists(cache_path):
+        return _read_rgb(cache_path)
+    if (os.environ.get("AUTOVFX_ALLOW_HUB_DOWNLOAD") == "1"
+            and importlib.util.find_spec("diffusers") is not None):
+        import torch
+        from diffusers import AutoPipelineForInpainting
+        from PIL import Image
+
+        pipe = AutoPipelineForInpainting.from_pretrained(
+            "diffusers/stable-diffusion-xl-1.0-inpainting-0.1",
+            torch_dtype=torch.float32).to(devices.resolve(device))
+        out = pipe(
+            prompt=text_prompt or "Fill the missing part.",
+            image=Image.fromarray(np.asarray(img, np.uint8)),
+            mask_image=Image.fromarray(
+                (np.asarray(mask) > 0).astype(np.uint8) * 255),
+        ).images[0]
+        return np.asarray(out)
+    return inpaint_img_with_lama(np.asarray(img), np.asarray(mask),
+                                 device=device)
 
 
 def get_envmap_from_single_view(

@@ -213,6 +213,30 @@ def apply_adam(
     return g, dataclasses.replace(adam, count=count)
 
 
+def step_with_loss(state: TrainState, cam: Camera, cfg: TrainConfig,
+                   loss_fn) -> tuple[TrainState, StepAux]:
+    """One step of ``loss_fn(g, mean2d_offset)`` -> (loss, (radii,
+    overflow, psnr)): its backward, Adam and the densify stats.  The
+    state's tensors are updated in place; the returned state holds
+    them."""
+    g = state.gaussians
+    with torch.enable_grad():
+        params = {f: getattr(g, f).detach().requires_grad_(True)
+                  for f in PARAM_FIELDS}
+        offset = torch.zeros((g.capacity, 2), dtype=torch.float32,
+                             device=g.xyz.device, requires_grad=True)
+        loss, (radii, overflow, psnr) = loss_fn(
+            dataclasses.replace(g, **params), offset)
+        grads = torch.autograd.grad(loss, [*params.values(), offset])
+    g, adam = apply_adam(g, state.adam, dict(zip(PARAM_FIELDS, grads)),
+                         state.step, cfg)
+    stats = state.stats.update(grads[-1], radii, cam.width, cam.height)
+    return (TrainState(gaussians=g, adam=adam, stats=stats,
+                       step=state.step + 1),
+            StepAux(loss=loss.detach(), psnr=psnr.detach(),
+                    overflow=overflow))
+
+
 def train_step(
     state: TrainState,
     cam: Camera,
@@ -223,23 +247,8 @@ def train_step(
 ) -> tuple[TrainState, StepAux]:
     """Render, loss, backward, Adam and stats for one view.  The state's
     tensors are updated in place; the returned state holds them."""
-    g = state.gaussians
-    with torch.enable_grad():
-        params = {f: getattr(g, f).detach().requires_grad_(True)
-                  for f in PARAM_FIELDS}
-        offset = torch.zeros((g.capacity, 2), dtype=torch.float32,
-                             device=g.xyz.device, requires_grad=True)
-        loss, (radii, overflow, psnr) = compute_loss(
-            dataclasses.replace(g, **params), offset, cam, gt_rgb, cfg,
-            gt_depth, gt_normal)
-        grads = torch.autograd.grad(loss, [*params.values(), offset])
-    g, adam = apply_adam(g, state.adam, dict(zip(PARAM_FIELDS, grads)),
-                         state.step, cfg)
-    stats = state.stats.update(grads[-1], radii, cam.width, cam.height)
-    return (TrainState(gaussians=g, adam=adam, stats=stats,
-                       step=state.step + 1),
-            StepAux(loss=loss.detach(), psnr=psnr.detach(),
-                    overflow=overflow))
+    return step_with_loss(state, cam, cfg, lambda g, offset: compute_loss(
+        g, offset, cam, gt_rgb, cfg, gt_depth, gt_normal))
 
 
 def densify_step(

@@ -85,3 +85,78 @@ def garden_camera(width: int = 1296, height: int = 840,
         height=height,
         device=device,
     )
+
+
+def lama_state_dict(ngf: int = 64, n_down: int = 3, n_blocks: int = 18,
+                    ratio: float = 0.75, seed: int = 0) -> dict:
+    """A seeded LaMa generator checkpoint's ``state_dict`` (CPU tensors
+    named ``generator.model.{i}.*``) at the given widths; the defaults
+    are big-lama's (``configs/training/big-lama.yaml``).  The layout is
+    FFCResNetGenerator's Sequential: a 7x7 stem, ``n_down`` stride-2
+    FFCs (the last opens the global branch at ``ratio``), ``n_blocks``
+    residual FFC blocks, ``n_down`` (transposed conv, BatchNorm, ReLU)
+    triples and a 7x7 output convolution.  Convolution weights are
+    normal with std 0.2 / (k·sqrt(in)) and the BatchNorms near identity,
+    so activations stay finite through the 18 blocks; the weights stand
+    in for the released ones, which are not in the repository."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    sd = {}
+
+    def bn(prefix, c):
+        sd[prefix + ".weight"] = rng.normal(1.0, 0.1, c).astype(f32)
+        sd[prefix + ".bias"] = rng.normal(0.0, 0.1, c).astype(f32)
+        sd[prefix + ".running_mean"] = rng.normal(0.0, 0.3, c).astype(f32)
+        sd[prefix + ".running_var"] = (0.5 + rng.random(c)).astype(f32)
+        sd[prefix + ".num_batches_tracked"] = np.asarray(0, np.int64)
+
+    def conv(key, cout, cin, k):
+        sd[key] = (rng.normal(0, 0.2, (cout, cin, k, k))
+                   / (k * np.sqrt(cin))).astype(f32)
+
+    def ffc(p, cin, cout, rin, rout, k):
+        in_g, out_g = int(cin * rin), int(cout * rout)
+        in_l, out_l = cin - in_g, cout - out_g
+        if in_l and out_l:
+            conv(f"{p}.ffc.convl2l.weight", out_l, in_l, k)
+        if in_l and out_g:
+            conv(f"{p}.ffc.convl2g.weight", out_g, in_l, k)
+        if in_g and out_l:
+            conv(f"{p}.ffc.convg2l.weight", out_l, in_g, k)
+        if in_g and out_g:
+            g = f"{p}.ffc.convg2g"
+            conv(g + ".conv1.0.weight", out_g // 2, in_g, 1)
+            bn(g + ".conv1.1", out_g // 2)
+            conv(g + ".fu.conv_layer.weight", out_g, out_g, 1)
+            bn(g + ".fu.bn", out_g)
+            conv(g + ".conv2.weight", out_g, out_g // 2, 1)
+        if out_l:
+            bn(f"{p}.bn_l", out_l)
+        if out_g:
+            bn(f"{p}.bn_g", out_g)
+
+    i = 1  # index 0 is the stem's ReflectionPad2d
+    ffc(f"model.{i}", 4, ngf, 0.0, 0.0, 7)
+    i += 1
+    for d in range(n_down):
+        ffc(f"model.{i}", ngf * 2**d, ngf * 2**(d + 1), 0.0,
+            ratio if d == n_down - 1 else 0.0, 3)
+        i += 1
+    feat = ngf * 2**n_down
+    for _ in range(n_blocks):
+        ffc(f"model.{i}.conv1", feat, feat, ratio, ratio, 3)
+        ffc(f"model.{i}.conv2", feat, feat, ratio, ratio, 3)
+        i += 1
+    i += 1  # ConcatTupleLayer
+    for u in range(n_down):
+        cin = ngf * 2**(n_down - u)
+        sd[f"model.{i}.weight"] = (rng.normal(0, 0.2, (cin, cin // 2, 3, 3))
+                                   / (3 * np.sqrt(cin))).astype(f32)
+        sd[f"model.{i}.bias"] = rng.normal(0, 0.1, cin // 2).astype(f32)
+        bn(f"model.{i + 1}", cin // 2)
+        i += 3  # ConvTranspose2d, BatchNorm2d, ReLU
+    i += 1  # ReflectionPad2d
+    conv(f"model.{i}.weight", 3, ngf, 7)
+    sd[f"model.{i}.bias"] = rng.normal(0, 0.1, 3).astype(f32)
+    return {"generator." + k: torch.from_numpy(np.asarray(v))
+            for k, v in sd.items()}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the novel view,
-training, the edited frame, its effects, a panorama and an edit program
-through the port's edit entry.
+training, the edited frame, its effects, a panorama, and an edit program
+and a removal program through the port's edit entry.
 
 Run from the root of a checkout, with no arguments:
 
@@ -53,8 +53,9 @@ in (never JAX, never ``autovfx_tpu``) and
    and fire in view, no host sync in a frame, a smoke step or a liquid
    substep; and times the smoke step, the melt solve, the frame and its
    stages;
-9. runs the effects' small cases (smoke, hash, noise, melt, LPIPS) on
-   the card and on the CPU and holds them to each other;
+9. runs the effects' small cases (smoke, hash, noise, melt, LPIPS) and
+   LaMa at big-lama's widths on the card and on the CPU and holds them
+   to each other;
 10. renders a panorama of the bench scene at face 512 (six launches of
     each forward kernel, the first face checked against the plain
     versions);
@@ -70,9 +71,20 @@ in (never JAX, never ``autovfx_tpu``) and
     well outside it the composite and the shadow ratio against plain
     recomputations, and a background and an object pass's kernels
     against their plain versions; and times a frame;
-12. times the physics substep and the edited clip's replay (last: the
+12. runs a removal program through the same entry on the same scene
+    (remove the table, retrieve a basketball from a local asset library,
+    drop it where the table stood): LaMa at big-lama's widths (seeded
+    weights) on the 8 views' removal renders, the reference's 2,000
+    retraining iterations through kernels 1-4 and the preprocess
+    backward, the scene reloaded, the ball's 4 previews; checks LaMa's
+    outputs and PNGs, the retraining (finite, no overflow, densify's
+    counts, the PSNR rising, the backward kernels at one step against
+    their plain versions), the scene swap, the table gone from camera
+    0's view, the retrieval and a preview's kernels, the ball at rest on
+    the patch, and the launches; and times its stages and a frame;
+13. times the physics substep and the edited clip's replay (last: the
     profiler's sessions after its long one lose records);
-13. puts each kernel's time on each path beside its bound (``bound``:
+14. puts each kernel's time on each path beside its bound (``bound``:
     the least time the card could take, from the bytes and operations
     that path's inputs need, ``*_work``) and their ratio, the share.
 
@@ -222,6 +234,38 @@ PNG_TOL = 1.0 / 255.0 + 1e-6  # the PNGs truncate to 8 bits
 COMPOSITE_TOL = 1e-5
 SHADOW_SAMPLES, SHADOW_TOL, SHADOW_SHARE_MIN = 4096, 1e-4, 0.995
 EDIT_TILE = 16  # RasterConfig's default, which the edit scene renders at
+
+# the removal program (the edit program's scene, the table removed and a
+# basketball dropped where it stood): big-lama's published widths
+# (configs/training/big-lama.yaml) as seeded weights, which stand in for
+# the released ones (not in the repository); the reference's 2,000
+# retraining iterations.  The ball's center is dropped BALL_DROP m above
+# the table's bottom, so that the once-subdivided icosphere (its hull is
+# its mesh) is at rest by the 8th frame: dropped from 0.3 m above the
+# table's top it falls 1.3 m and is still moving there.  It is dropped
+# BALL_AWAY m beyond the footprint's center, away from camera 0: no ring
+# view sees the table's side facing camera 0, so that side stays in the
+# removal mesh, and the solver pushes a ball dropped at the center out
+# through it (tests/test_torch_removal_drop.py pins all three drops in
+# both packages).  At rest the ball sinks below the patch's plane by
+# more than the 1 mm collision margin (its lowest vertex 1.6 mm down on
+# an H100): BALL_SINK_MAX is the margin, the solver's 1 mm slop and 1 mm
+# for the card's physics against the CPU's (tests/test_torch_cuda.py
+# holds positions to 1e-3).
+LAMA_WIDTHS = dict(ngf=64, n_down=3, n_blocks=18, ratio=0.75)
+RETRAIN_ITERATIONS = 2000
+RETRAIN_CHECK_STEP = 1000  # the step whose backward kernels are checked
+PSNR_STEPS = 50  # steps averaged at each end of the retraining
+BALL_SIZE = 0.24  # m, the GPT-4V size table's basketball
+BALL_DROP = 0.15
+REST_FRAMES = 3  # the last frames over which the ball must not move
+BALL_SINK_MAX = 0.003  # m
+BALL_AWAY = 0.15  # m
+PREVIEW_PIXELS_MIN = 1000
+TABLE_GONE_DIFF, TABLE_GONE_SHARE = 0.1, 0.5
+# the card against the CPU: LaMa at big-lama's widths on one image
+PARITY_LAMA_HW = (96, 128)
+LAMA_RANGE_TOL = 1e-4  # of the CPU output's range
 
 # tolerances of the kernel checks
 MEAN2D_ATOL = 1e-4  # px, plus 2 float32 ulps of the coordinate
@@ -751,6 +795,27 @@ def check_blend(P, binned, splats, images, tiles, width, height, tile,
     check(q < ALPHA_Q999 and da.max().item() < ALPHA_MAX,
           f"{what}: alpha q99.9 {q}, max {da.max().item()}")
     return (color - r_color).abs().max().item()
+
+
+def check_view_kernels(P, g, cam, budget, tile, rng, what) -> dict:
+    """Kernels 1-3 on one view of ``g`` against their plain versions (the
+    blend on ``CHECK_TILES`` seeded tiles); each one's largest error."""
+    ops = P.ops
+    w, h = cam.width, cam.height
+    tx, ty = ops.projection.num_tiles(w, h, tile)
+    s = ops.preprocess_cuda.preprocess_kernel(g, cam, tile=tile)
+    err = {"preprocess": check_preprocess(
+        s, ops.projection.preprocess(g, cam, tile=tile), what)}
+    err["duplicate_with_keys"] = check_duplicates(P, s, tx, tx * ty, budget,
+                                                  what)
+    b = ops.binning.bin_splats(s, w, h, budget, tile=tile)
+    check(not bool(b.overflow), f"{what}: overflow")
+    images = ops.blend_cuda.blend_kernel(b, s, w, h, tile)
+    tiles = torch.from_numpy(rng.choice(tx * ty, CHECK_TILES,
+                                        replace=False)).to(DEVICE)
+    err["blend_fwd"] = check_blend(P, b, s, images, tiles, w, h, tile, what)
+    sync()
+    return err
 
 
 def small_checks(P) -> None:
@@ -1763,7 +1828,9 @@ def card_against_cpu(P) -> dict:
     the tolerance of its CPU test: the smoke solve fixed and adaptive at
     R = 24 for 4 frames (and the adaptive origins equal), the lattice
     hash and the display noise bit-equal, ``MeltSim.run`` at R = 32, and
-    LPIPS on two 128×128 images.  Returns each case's largest error."""
+    LPIPS on two 128×128 images, and LaMa at big-lama's widths on one
+    128×96 image (the card's cuFFT and cuDNN against the CPU's).
+    Returns each case's largest error."""
     from autovfx_tpu_torch.render import liquid, smoke
     from autovfx_tpu_torch.utils import lpips
 
@@ -1825,12 +1892,30 @@ def card_against_cpu(P) -> dict:
     check(abs(d[0] - d[1]) <= LPIPS_RTOL * abs(d[1]),
           f"LPIPS {d[0]} on the card, {d[1]} on the CPU")
     err["lpips"] = abs(d[0] - d[1]) / abs(d[1])
+    from autovfx_tpu_torch.perception import lama
+    from autovfx_tpu_torch.utils.synthetic import lama_state_dict
+
+    sd = lama_state_dict(**LAMA_WIDTHS, seed=0)
+    x = torch.from_numpy(rng.random((1, 4) + PARITY_LAMA_HW, np.float32))
+    y = {dev: lama.lama_generator(lama.convert_torch_state_dict(
+        sd, device=dev), x.to(dev)).cpu() for dev in (DEVICE, "cpu")}
+    span = (y["cpu"].max() - y["cpu"].min()).item()
+    d_lama = (y[DEVICE] - y["cpu"]).abs().max().item()
+    check(bool(torch.isfinite(y[DEVICE]).all())
+          and d_lama <= LAMA_RANGE_TOL * span,
+          f"LaMa at big-lama's widths on the card against the CPU: max "
+          f"difference {d_lama:.3g}, {LAMA_RANGE_TOL} of the output's range "
+          f"{span:.3g} allowed")
+    err["lama"] = d_lama / span
     print("card against CPU: smoke fixed and adaptive (R = "
           f"{PARITY_SMOKE_RES}, {PARITY_SMOKE_FRAMES} frames) within "
           f"{err['smoke fixed']:.3g} and {err['smoke adaptive']:.3g} of the "
           "largest, origins equal; the lattice hash and the display noise "
           f"bit-equal; MeltSim (R = {PARITY_MELT_RES}) {melt}; LPIPS "
-          f"{PARITY_LPIPS}x{PARITY_LPIPS} {d[0]:.6f} / {d[1]:.6f}: ok")
+          f"{PARITY_LPIPS}x{PARITY_LPIPS} {d[0]:.6f} / {d[1]:.6f}; LaMa "
+          f"{LAMA_WIDTHS} at {PARITY_LAMA_HW[1]}x{PARITY_LAMA_HW[0]} within "
+          f"{err['lama']:.3g} of the output's range {span:.3g} (TF32 flags "
+          f"at PyTorch's defaults): ok")
     return err
 
 
@@ -2747,7 +2832,6 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
 
     # one background pass and one object pass against the plain versions
     err = {}
-    tx, ty = ops.projection.num_tiles(WIDTH, HEIGHT, EDIT_TILE)
     rng = np.random.default_rng(13)
     captured = []
 
@@ -2759,24 +2843,9 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
     scene.render_object_pass(anchor)
     del scene.rasterize
     for what, g in (("background", scene.gaussians), ("object", captured[0])):
-        s = ops.preprocess_cuda.preprocess_kernel(g, cam, tile=EDIT_TILE)
-        e = check_preprocess(s, ops.projection.preprocess(g, cam,
-                                                          tile=EDIT_TILE),
-                             f"edit program {what} pass")
-        err["preprocess"] = max(err.get("preprocess", 0.0), e)
-        err["duplicate_with_keys"] = max(
-            err.get("duplicate_with_keys", 0.0),
-            check_duplicates(P, s, tx, tx * ty, budget,
-                             f"edit program {what} pass"))
-        b = ops.binning.bin_splats(s, WIDTH, HEIGHT, budget, tile=EDIT_TILE)
-        check(not bool(b.overflow), f"edit program {what} pass: overflow")
-        images = ops.blend_cuda.blend_kernel(b, s, WIDTH, HEIGHT, EDIT_TILE)
-        tiles = torch.from_numpy(rng.choice(tx * ty, CHECK_TILES,
-                                            replace=False)).to(DEVICE)
-        err["blend_fwd"] = max(err.get("blend_fwd", 0.0), check_blend(
-            P, b, s, images, tiles, WIDTH, HEIGHT, EDIT_TILE,
-            f"edit program {what} pass"))
-        sync()
+        for k, e in check_view_kernels(P, g, cam, budget, EDIT_TILE, rng,
+                                       f"edit program {what} pass").items():
+            err[k] = max(err.get(k, 0.0), e)
     print(f"edit program: anchor frame {changed} pixels differ from the "
           f"preamble by > 0.1, {changed_near} of them within "
           f"{SILHOUETTE_OUTSET * px:.0f} px of the cube's silhouette; "
@@ -2834,6 +2903,509 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
           + ", ".join(f"{k} {v:.3f}" for k, v in part_ms.items())
           + f"; the rest (composite) {busy - sum(part_ms.values()):.3f}")
     tmp.cleanup()
+    return launches, err
+
+
+# ---- the removal program ---------------------------------------------------------
+
+
+def icosphere() -> tuple[np.ndarray, np.ndarray]:
+    """A once-subdivided icosphere of unit diameter (42 vertices, 80
+    faces): every vertex stays in the solver's 64-vertex hull, so the
+    hull the ball rests on is its mesh."""
+    p = (1 + 5 ** 0.5) / 2
+    v = [np.array(x, float) for x in (
+        (-1, p, 0), (1, p, 0), (-1, -p, 0), (1, -p, 0), (0, -1, p), (0, 1, p),
+        (0, -1, -p), (0, 1, -p), (p, 0, -1), (p, 0, 1), (-p, 0, -1),
+        (-p, 0, 1))]
+    v = [x / np.linalg.norm(x) for x in v]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5),
+             (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    mid, out = {}, []
+
+    def m(a, b):
+        key = (min(a, b), max(a, b))
+        if key not in mid:
+            c = v[a] + v[b]
+            v.append(c / np.linalg.norm(c))
+            mid[key] = len(v) - 1
+        return mid[key]
+
+    for a, b, c in faces:
+        ab, bc, ca = m(a, b), m(b, c), m(c, a)
+        out += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+    return (0.5 * np.array(v)).astype(np.float32), np.array(out, np.int64)
+
+
+def removal_program_files(P, root: str) -> dict:
+    """The removal program's inputs under ``root``: the edit program's
+    scene, trajectory and table masks (``edit_program_files``), a local
+    asset library of a basketball (``icosphere``) and two distractors,
+    big-lama's widths as a seeded checkpoint, and the program."""
+    from autovfx_tpu_torch.edit import mesh_io
+    from autovfx_tpu_torch.utils.synthetic import lama_state_dict
+
+    files = edit_program_files(P, root)
+    t0 = time.perf_counter()
+    lib = os.path.join(root, "assets")
+    os.makedirs(lib)
+    v, f = icosphere()
+    color = lambda n, rgb: np.tile(np.asarray(rgb, np.float32), (n, 1))
+    mesh_io.save_obj(os.path.join(lib, "basketball.obj"), mesh_io.Mesh(
+        v, f, vertex_colors=color(len(v), (0.85, 0.4, 0.1))))
+    corners = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
+                        for z in (-0.5, 0.5)], np.float32)
+    mesh_io.save_obj(os.path.join(lib, "red_cube.obj"), mesh_io.Mesh(
+        corners, CUBE_FACES, vertex_colors=color(8, (0.8, 0.1, 0.1))))
+    seat = corners * [0.5, 0.5, 0.1]
+    back = corners * [0.5, 0.08, 0.5] + [0.0, 0.21, 0.3]
+    mesh_io.save_obj(os.path.join(lib, "chair.obj"), mesh_io.Mesh(
+        np.concatenate([seat, back]),
+        np.concatenate([CUBE_FACES, CUBE_FACES + 8]),
+        vertex_colors=color(16, (0.5, 0.3, 0.2))))
+    ckpt = os.path.join(root, "big-lama.ckpt")
+    torch.save({"state_dict": lama_state_dict(**LAMA_WIDTHS, seed=0)}, ckpt)
+    program = os.path.join(root, "removal_program.py")
+    dx, dy = BALL_AWAY * table_frame()[1]
+    with open(program, "w") as fh:
+        fh.write('table = detect_object(scene, "table")\n'
+                 "drop_pos = get_object_bottom_position(table) + np.array("
+                 f"[{dx:.4f}, {dy:.4f}, {BALL_DROP}], np.float32)\n"
+                 "remove_object(scene, table)\n"
+                 'ball = retrieve_asset(scene, "basketball")\n'
+                 "ball = translate_object(ball, drop_pos - "
+                 "get_object_bottom_position(ball))\n"
+                 "ball = allow_physics(ball)\n"
+                 "insert_object(scene, ball)\n")
+    print(f"removal program inputs: the asset library {sorted(os.listdir(lib))}"
+          f", a big-lama-shaped checkpoint ({LAMA_WIDTHS}, seed 0) of "
+          f"{os.path.getsize(ckpt) / 2**20:.1f} MiB, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(files, lib=lib, ckpt=ckpt, program=program)
+
+
+def in_convex(points: np.ndarray, ring: np.ndarray) -> np.ndarray:
+    """Which 2-D ``points`` lie inside the convex polygon ``ring`` (its
+    vertices in order, either way round)."""
+    d = np.roll(ring, -1, 0) - ring
+    rel = points[:, None, :] - ring[None]
+    cross = d[None, :, 0] * rel[..., 1] - d[None, :, 1] * rel[..., 0]
+    return (cross >= 0).all(1) | (cross <= 0).all(1)
+
+
+def removal_program_point(P, card: str) -> tuple[dict, dict]:
+    """The port's edit entry on the edit program's scene with a removal
+    program at full width: the table is detected, removed (the removal
+    renders, LaMa on each view, the retraining on the inpainted views,
+    the scene reloaded) and a basketball retrieved from a local library
+    (its previews rendered) and dropped where the table stood; physics
+    and ``render_scene`` over the 8 ring views.  Each stage is timed and
+    its renders counted, the kernels' launches counted over the run;
+    then its results are checked."""
+    import random
+
+    from autovfx_tpu_torch import edit_scene
+    from autovfx_tpu_torch.core import ply_io
+    from autovfx_tpu_torch.core.cameras import index_camera
+    from autovfx_tpu_torch.core.quaternion import euler_to_rotmat
+    from autovfx_tpu_torch.edit import edit_utils, mesh_io
+    from autovfx_tpu_torch.edit import scene_representation as SR
+    from autovfx_tpu_torch.gpt import lmp
+    from autovfx_tpu_torch.perception import extract, lama
+    from autovfx_tpu_torch.physics import solver
+    from autovfx_tpu_torch.render import preview
+    from autovfx_tpu_torch.train import inpaint_retrain, trainer
+    from autovfx_tpu_torch.utils import png
+
+    ops = P.ops
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    files = removal_program_files(P, root)
+    # the budget: the worst ring view of the whole scene, with room for
+    # the retraining's densification to fill its 1.5x capacity, or of
+    # the ball's 60,000 surfels resting where the table stood
+    from autovfx_tpu_torch.render import meshsplat
+
+    need = lambda x, c: int(ops.binning.required_budget(
+        ops.preprocess_cuda.preprocess(x, c, tile=EDIT_TILE)))
+    g = ply_io.load_ply(files["ply"], device=DEVICE)
+    worst = max(need(g, c) for c in ring_cameras())
+    v, f = icosphere()
+    center, ahead, _ = table_frame()
+    center = np.append(center + BALL_AWAY * ahead, BALL_SIZE / 2)
+    surf = meshsplat.sample_mesh_surfels(
+        mesh_io.Mesh(v, f).normalized_to_unit_box().vertices * BALL_SIZE
+        + center, f, 60_000, device=DEVICE)
+    ball_g = meshsplat.surfels_to_gaussians(
+        surf["points"], surf["normals"], surf["colors"], surf["radius"])
+    worst_ball = max(need(ball_g, c) for c in ring_cameras())
+    budget = ops.binning.round_budget(max(1.5 * worst, worst_ball),
+                                      slack=BUDGET_SLACK)
+    del g, surf, ball_g
+    print(f"removal program duplicates: worst view {worst} (the ball's "
+          f"{worst_ball}), budget {budget}")
+    opts = edit_scene.get_opts([
+        "--source_path", root, "--model_path", root,
+        "--gaussians_ckpt_path", files["ply"],
+        "--scene_mesh_path", files["mesh"], "--custom_traj_name", "ring",
+        "--dup_budget", str(budget), "--edit_text",
+        "Remove the table and drop a basketball where it stood.",
+        "--offline_program", files["program"], "--device", DEVICE])
+
+    clock = StageClock()
+    seen = {"lama_in": [], "lama_out": [], "psnr": [], "overflow": [],
+            "lpips_steps": 0, "densify": [], "retrievals": []}
+    scene_cls = SR.SceneRepresentation
+    wrapped = [(scene_cls, k) for k in (
+        "rasterize", "render_from_3DGS", "load_scene", "run_physics",
+        "render_scene")]
+    wrapped += [(edit_utils, k) for k in ("detect_object", "remove_object",
+                                          "retrieve_asset")]
+    wrapped += [(extract, "inpaint_object"), (extract, "inpaint_img_with_lama"),
+                (lama, "lama_generator"),
+                (inpaint_retrain, "training_3DGS_for_inpainting"),
+                (inpaint_retrain, "inpaint_step"),
+                (inpaint_retrain, "rasterize"), (preview, "rasterize"),
+                (trainer, "densify_step"), (lmp.LMP, "__call__")]
+    saved = [(owner, k, getattr(owner, k)) for owner, k in wrapped]
+
+    def counted(owner, attr):
+        fn = getattr(owner, attr)
+
+        def render(*a, **k):
+            clock.renders += 1
+            return fn(*a, **k)
+
+        setattr(owner, attr, render)
+
+    def keep_scene(_, self, *a, **k):
+        seen["scene"] = self
+
+    def keep_lama_in(out, rgb, hole, **k):
+        seen["lama_in"].append(((np.clip(rgb, 0, 1) * 255).astype(np.uint8),
+                                np.asarray(hole, bool)))
+
+    def keep_lama_out(y, *a, **k):
+        seen["lama_out"].append((bool(torch.isfinite(y).all()),
+                                 y.min().item(), y.max().item()))
+
+    def keep_step(result, state, cam, img, mask, cfg, use_lpips):
+        state, aux = result
+        seen["psnr"].append(aux.psnr)
+        seen["overflow"].append(aux.overflow)
+        seen["lpips_steps"] += bool(use_lpips)
+        seen["state"] = state
+        if state.step == RETRAIN_CHECK_STEP:
+            g = state.gaussians
+            seen["check"] = (dataclasses.replace(g, **{
+                f.name: getattr(g, f.name).clone()
+                for f in dataclasses.fields(g)}), cam)
+
+    def keep_densify(result, state, *a, **k):
+        res = result[1]
+        seen["densify"].append((int(state.gaussians.num_active),
+                                int(res.gaussians.num_active),
+                                {n: int(getattr(res, n)) for n in (
+                                    "n_cloned", "n_split", "n_pruned",
+                                    "dropped")}))
+
+    for owner, attr in ((scene_cls, "rasterize"), (inpaint_retrain,
+                                                   "rasterize"),
+                        (preview, "rasterize")):
+        counted(owner, attr)
+    clock.wrap(scene_cls, "render_from_3DGS",
+               lambda n: "preamble" if n == 0 else None)
+    clock.wrap(scene_cls, "load_scene", lambda n: "reload" if n else None)
+    clock.wrap(scene_cls, "run_physics", "physics")
+    clock.wrap(scene_cls, "render_scene", "render_scene", keep=keep_scene)
+    clock.wrap(edit_utils, "detect_object", "detect+extract")
+    clock.wrap(edit_utils, "remove_object", "remove")
+    clock.wrap(edit_utils, "retrieve_asset", "retrieval+previews",
+               keep=lambda out, *a, **k: seen["retrievals"].append(out))
+    clock.wrap(extract, "inpaint_object", "inpaint")
+    clock.wrap(extract, "inpaint_img_with_lama", lambda n: None,
+               keep=keep_lama_in)
+    clock.wrap(lama, "lama_generator", "lama", keep=keep_lama_out)
+    clock.wrap(inpaint_retrain, "training_3DGS_for_inpainting", "retraining")
+    clock.wrap(inpaint_retrain, "inpaint_step", lambda n: None, keep=keep_step)
+    clock.wrap(trainer, "densify_step", lambda n: None, keep=keep_densify)
+    clock.wrap(lmp.LMP, "__call__", "program")
+    env = {"AUTOVFX_ASSET_DIR": files["lib"],
+           "AUTOVFX_LAMA_CKPT": files["ckpt"]}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    random.seed(0)
+    np.random.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    try:
+        frames = edit_scene.run_scene_editing(opts, opts.edit_text,
+                                              opts.offline_program)
+        sync()
+    finally:
+        for owner, k, fn in saved:
+            setattr(owner, k, fn)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    launches = counters(ops)
+    peak = torch.cuda.max_memory_allocated()
+    st = clock.stages
+    for outer, inner in (("program", "detect+extract"), ("program", "remove"),
+                         ("program", "retrieval+previews"),
+                         ("remove", "inpaint"), ("remove", "retraining"),
+                         ("remove", "reload"), ("inpaint", "lama"),
+                         ("render_scene", "physics")):
+        clock.exclusive(outer, inner)
+    scene = seen["scene"]
+    anchor = scene.hparams.anchor_frame_idx
+    cache = os.path.join(root, "cache")
+    base = os.path.join(cache, "extract", "table", "1")
+
+    # the frames
+    check(tuple(frames.shape) == (N_CAMS, HEIGHT, WIDTH, 3),
+          f"removal program frames: shape {tuple(frames.shape)}")
+    check(bool(torch.isfinite(frames).all()) and frames.min().item() >= 0.0
+          and frames.max().item() <= 1.0,
+          "removal program frames: not finite or outside [0, 1]")
+    check(not bool(scene.overflowed), "removal program: duplicate overflow")
+
+    # LaMa on every view: finite, in [0, 1], and the inpainted PNG equal
+    # to the removal render outside the hole
+    n_views = len(seen["lama_in"])
+    check(n_views == N_CAMS and len(seen["lama_out"]) == N_CAMS,
+          f"LaMa ran on {len(seen['lama_out'])} of {N_CAMS} views")
+    lo = min(x[1] for x in seen["lama_out"])
+    hi = max(x[2] for x in seen["lama_out"])
+    check(all(x[0] for x in seen["lama_out"]) and lo >= 0.0 and hi <= 1.0,
+          f"LaMa's output: finite {[x[0] for x in seen['lama_out']]}, range "
+          f"[{lo}, {hi}]")
+    holes = []
+    for i, (want, hole) in enumerate(seen["lama_in"]):
+        got = png.read_png(os.path.join(base, "render_inpaint_lama",
+                                        f"{i:05d}.png"))
+        mask = png.read_mask(os.path.join(base, "render_inpaint_mask",
+                                          f"{i:05d}.png"))
+        check(np.array_equal(mask, hole), f"view {i}: the hole PNG differs")
+        check(np.array_equal(got[~hole], want[~hole]),
+              f"view {i}: the inpainted PNG differs from the removal render "
+              f"outside the hole at {int((got[~hole] != want[~hole]).sum())} "
+              "values")
+        holes.append(int(hole.sum()))
+
+    # the retraining: every iteration, finite, no overflow, densify's
+    # counts, the PSNR against the inpainted targets rising
+    steps = len(seen["psnr"])
+    check(steps == RETRAIN_ITERATIONS,
+          f"the retraining ran {steps} of {RETRAIN_ITERATIONS} iterations")
+    check_state(seen["state"], "after the retraining")
+    check(not bool(torch.stack(seen["overflow"]).any()),
+          "the retraining: a step overflowed its duplicate budget")
+    for n_before, n_after, c in seen["densify"]:
+        expect = (n_before + c["n_cloned"] + 2 * c["n_split"] - c["n_pruned"]
+                  - c["dropped"])
+        check(n_after == expect, f"densify: {n_before} -> {n_after}, {c}")
+    check(len(seen["densify"]) == (RETRAIN_ITERATIONS - 1) // 300,
+          f"{len(seen['densify'])} densifications")
+    psnrs = torch.stack(seen["psnr"]).cpu().numpy()
+    first, last = (float(psnrs[:PSNR_STEPS].mean()),
+                   float(psnrs[-PSNR_STEPS:].mean()))
+    check(np.isfinite(psnrs).all() and last > first,
+          f"the retraining's PSNR against the inpainted views: {first:.3f} "
+          f"dB over the first {PSNR_STEPS} steps, {last:.3f} over the last")
+    # kernel 4 and the preprocess backward at one step, on its shapes
+    rng = np.random.default_rng(15)
+    g_k, cam_k = seen["check"]
+    tx, ty = ops.projection.num_tiles(WIDTH, HEIGHT, EDIT_TILE)
+    tiles = torch.from_numpy(rng.choice(tx * ty, CHECK_TILES,
+                                        replace=False)).to(DEVICE)
+    what = f"retraining step {RETRAIN_CHECK_STEP} ({g_k.capacity} slots)"
+    e1, r1 = check_preprocess_bwd(P, g_k, cam_k, EDIT_TILE, rng, what)
+    e2, r2, zeroed, n_px = check_blend_bwd(P, g_k, cam_k, EDIT_TILE, rng,
+                                           what, tiles=tiles)
+    err = {"preprocess_bwd": e1, "blend_bwd": e2}
+    # the LPIPS step at full width: the bench scene's far shell covers
+    # every ray, so the removal renders may leave no hole and no step
+    # take LPIPS (none did on an H100); it is timed here on camera 0 with
+    # the table's mask as its hole, beside the step without it, from the
+    # state of that step
+    table_mask = torch.from_numpy(png.read_mask(os.path.join(
+        cache, "tracking", "table", "1", f"{anchor:05d}.png"))).to(DEVICE)
+    target = torch.from_numpy(png.read_png(os.path.join(
+        base, "render_inpaint_lama", f"{anchor:05d}.png")).astype(
+        np.float32) / 255.0).to(DEVICE)
+    cfg = inpaint_retrain.inpaint_config(scene, RETRAIN_ITERATIONS)
+    cam0 = index_camera(scene.cameras, anchor)
+    box = [trainer.init_state(g_k)]
+
+    def lpips_step(use_lpips):
+        box[0], aux = inpaint_retrain.inpaint_step(box[0], cam0, target,
+                                                   table_mask, cfg, use_lpips)
+        return aux
+
+    aux = lpips_step(True)
+    check(bool(torch.isfinite(aux.loss)) and not bool(aux.overflow),
+          f"the LPIPS step at full width: loss {aux.loss.item()}")
+    step_ms = {k: cuda_ms(lambda k=k: lpips_step(k), 5) for k in (True,
+                                                                   False)}
+    check_state(box[0], "after the LPIPS steps")
+    del seen["check"], seen["state"], box
+
+    # the scene swap: the retrained splats, the removal mesh + the patch
+    ply = os.path.join(base, "inpaint_gaussians.ply")
+    check(scene.hparams.gaussians_ckpt_path == ply
+          and scene.gaussians.capacity
+          == ply_io.load_ply(ply, device="cpu").capacity,
+          "the reloaded scene is not inpaint_gaussians.ply")
+    merged = mesh_io.load_mesh(scene.scene_mesh_path_for_blender)
+    removal = mesh_io.load_mesh(os.path.join(base, "removal_mesh",
+                                             "removal_mesh.obj"))
+    n_patch = len(merged.vertices) - len(removal.vertices) - 1
+    check(scene.scene_mesh_path_for_blender.endswith(
+        "inpaint_removal_mesh.obj") and n_patch >= 3
+        and len(merged.faces) == len(removal.faces) + n_patch,
+        f"the scene mesh: {len(merged.faces)} faces, the removal mesh "
+        f"{len(removal.faces)}, a patch of {n_patch} triangles")
+    patch = merged.vertices[len(removal.vertices):]
+    patch_z = float(patch[0, 2])
+
+    # the table is gone: inside camera 0's table mask the anchor frame
+    # differs from the preamble's render, which shows the table
+    pre = png.read_png(os.path.join(cache, "traj", "images",
+                                    f"{anchor:05d}.png"))
+    pre = torch.from_numpy(pre.astype(np.float32) / 255.0).to(DEVICE)
+    diff = (frames[anchor] - pre).abs().amax(-1)
+    gone = float((diff[table_mask] > TABLE_GONE_DIFF).float().mean())
+    check(gone >= TABLE_GONE_SHARE,
+          f"the table: {gone:.3f} of camera {anchor}'s {int(table_mask.sum())}"
+          f" table pixels differ from the preamble by > {TABLE_GONE_DIFF} "
+          f"(at least {TABLE_GONE_SHARE} wanted)")
+
+    # retrieval: the basketball, at the size table's scale, its previews
+    check(len(seen["retrievals"]) == 1, "retrieve_asset: not called once")
+    ball = seen["retrievals"][0]
+    check(ball["object_id"] == "basketball"
+          and abs(ball["scale"] - BALL_SIZE / scene.scene_scale) < 1e-9,
+          f"retrieve_asset: {ball['object_id']} at scale {ball['scale']}")
+    pv_dir = os.path.join(cache, "assets_rendering_multi_views", "basketball")
+    names = sorted(os.listdir(pv_dir))
+    pv_pixels = [int((png.read_png(os.path.join(pv_dir, n)).min(-1) < 250)
+                     .sum()) for n in names]
+    check(len(names) == 4 and min(pv_pixels) >= PREVIEW_PIXELS_MIN,
+          f"previews {names}: {pv_pixels} object pixels (at least "
+          f"{PREVIEW_PIXELS_MIN} each wanted)")
+    cam_p, g_p = preview.preview_views(ball["object_path"], 4, 256,
+                                       device=DEVICE)[0]
+    for k, e in check_view_kernels(P, g_p, cam_p,
+                                   preview.PREVIEW_CONFIG.dup_budget,
+                                   preview.PREVIEW_CONFIG.tile, rng,
+                                   "preview 0").items():
+        err[k] = max(err.get(k, 0.0), e)
+
+    # the ball lands: it fell, is at rest over the last frames, and its
+    # lowest point lies on the patch's plane inside the patch
+    margin = solver.SolverConfig().collision_margin
+    oid = ball["object_id"]
+    rb = scene.rb_transform[oid]
+    z = np.array([rb[str(f)]["pos"][2] for f in range(N_CAMS)])
+    pose = rb[str(N_CAMS - 1)]
+    rot = euler_to_rotmat(*[float(x) for x in pose["rot"]]).numpy()
+    verts = mesh_io.load_mesh(ball["object_path"]).normalized_to_unit_box()
+    world = (verts.vertices * float(pose["scale"][0])) @ rot.T + pose["pos"]
+    low = world[np.argmin(world[:, 2])]
+    rest = float(np.abs(z[-REST_FRAMES:] - z[-1]).max())
+    check(z[0] - z[-1] > 0.01 and rest <= margin,
+          f"the ball does not come to rest: z {z}")
+    check(-BALL_SINK_MAX <= low[2] - patch_z <= margin
+          and bool(in_convex(low[None, :2], patch[1:, :2])[0]),
+          f"the ball's lowest point {low} is not on the patch (z {patch_z}, "
+          f"within -{BALL_SINK_MAX}..{margin})")
+
+    # the launches: kernels 1-3 once a render, 4 and the preprocess
+    # backward once a retraining step, kernel 3's training variant there
+    fwd = launches["blend_fwd"] + launches["blend_fwd_train"]
+    check(launches["preprocess"] == launches["duplicate_with_keys"] == fwd
+          == clock.renders and launches["blend_fwd_train"]
+          == launches["blend_bwd"] == launches["preprocess_bwd"] == steps,
+          f"removal program: launches {launches} for {clock.renders} renders "
+          f"and {steps} steps")
+    check(sum(v["renders"] for v in st.values()) == clock.renders,
+          f"removal program: {clock.renders} renders, "
+          f"{sum(v['renders'] for v in st.values())} of them on a stage")
+    check(st["preamble"]["renders"] == N_CAMS
+          and st["inpaint"]["renders"] == N_CAMS
+          and st["retraining"]["renders"] == steps
+          and st["retrieval+previews"]["renders"] == 4,
+          "removal program: renders a stage")
+    large = seen["lpips_steps"]
+    print(f"removal program: LaMa on {n_views} views (output in [{lo:.4f}, "
+          f"{hi:.4f}], holes of {holes} pixels); the inpainted PNGs equal "
+          f"the removal renders outside the holes; retraining {steps} "
+          f"iterations ({large} of them with LPIPS, on views with large "
+          f"holes), PSNR {first:.3f} -> {last:.3f} dB (first and last "
+          f"{PSNR_STEPS} steps), densify {seen['densify']}; at step "
+          f"{RETRAIN_CHECK_STEP} preprocess_bwd and blend_bwd ({CHECK_TILES} "
+          f"tiles, {zeroed} of {n_px} pixels zeroed) against the plain "
+          f"versions: max abs err {e1:.3g}, {e2:.3g} ({r1:.3g}, {r2:.3g} of "
+          f"the largest); the scene reloaded from inpaint_gaussians.ply "
+          f"({scene.gaussians.capacity} splats), its mesh "
+          f"{len(removal.faces)} + {n_patch} patch triangles; {gone:.3f} of "
+          f"camera {anchor}'s table pixels changed; the basketball at scale "
+          f"{ball['scale']}, previews of {pv_pixels} object pixels, preview "
+          f"0's kernels against the plain versions: ok; the ball's z "
+          + ", ".join(f"{x:.4f}" for x in z) + f", its lowest point {low} "
+          f"on the patch at z {patch_z}; launches {launches} for "
+          f"{clock.renders} renders")
+
+    # times
+    stage_txt = ", ".join(
+        f"{k} {v['s'] * 1000.0:.1f} ms ({v['renders']} renders)"
+        for k, v in st.items())
+    print(f"[{card}] removal program at {WIDTH}x{HEIGHT} tile {EDIT_TILE}, "
+          f"{N_CAMS} frames: run_scene_editing {wall * 1000.0:.1f} ms wall; "
+          f"stages (wall, each without the stages inside it): {stage_txt}; "
+          f"a retraining step {st['retraining']['s'] * 1000.0 / steps:.2f} "
+          f"ms, LaMa {st['lama']['s'] * 1000.0 / n_views:.1f} ms a view; "
+          f"a step on camera {anchor} with the table's mask as its hole "
+          f"{step_ms[True]:.2f} ms with LPIPS, {step_ms[False]:.2f} ms "
+          f"without (CUDA events, 5 calls); "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+
+    def frame():
+        c, d, a = scene.render_from_3DGS(frame_indices=[anchor])
+        return scene.render_frame(anchor, c[0], d[0], a[0])
+
+    for _ in range(WARMUP):
+        frame()
+    sync()
+    streamed = cuda_ms(frame, 5)
+    records = profiled(frame, 1)
+    busy = sum(e.duration_ns() for e in records) / 1e6
+    print(f"[{card}] removal program frame (background pass + render_frame):"
+          f" {streamed:.3f} ms (CUDA events), device busy {busy:.3f} ms, idle "
+          f"share {1.0 - busy / streamed:.3f}, {len(records)} device records")
+    c, d, a = (x[0] for x in scene.render_from_3DGS(frame_indices=[anchor]))
+    parts = {
+        "background pass": lambda: scene.render_from_3DGS(
+            frame_indices=[anchor]),
+        "object pass": lambda: scene.render_object_pass(anchor),
+        "shadow pass": lambda: scene.render_shadow_pass(anchor, d, a),
+    }
+    part_ms = {k: device_ms(fn, KERNEL_REPS, max_lost=1)
+               for k, fn in parts.items()}
+    print(f"[{card}] removal program frame by pass (device ms, profiler): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in part_ms.items())
+          + f"; the rest (composite) {busy - sum(part_ms.values()):.3f}")
+    tmp.cleanup()
+    launches["blend_fwd"] = fwd
+    del launches["blend_fwd_train"]
     return launches, err
 
 
@@ -2911,8 +3483,10 @@ def main() -> None:
     card_against_cpu(P)
     pano_launches, pano_err = panorama_point(P, card, edit["g"])
     program_launches, program_err = edit_program_point(P, card)
+    removal_launches, removal_err = removal_program_point(P, card)
     physics_point(P, card, edit["w"], edit["inp"], edit["config"])
-    for part in (train_err, edit_err, fx_err, pano_err, program_err):
+    for part in (train_err, edit_err, fx_err, pano_err, program_err,
+                 removal_err):
         for k, e in part.items():
             err[k] = max(err.get(k, 0.0), e)
     ms.update(train_ms)
@@ -2928,7 +3502,8 @@ def main() -> None:
                    "edited_frame": edit_launches[k],
                    "effects_frame": fx_launches[k],
                    "panorama": pano_launches[k],
-                   "edit_program": program_launches[k]}
+                   "edit_program": program_launches[k],
+                   "removal_program": removal_launches[k]}
         main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],

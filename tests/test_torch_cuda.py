@@ -8,7 +8,8 @@ training entry's images bit-equal to the novel-view entry's, its
 n_contrib the plain blend's last blended duplicate), ``render``'s normal
 pass, and the wrappers' refusals; and for the training path, the
 backward kernels under those options, the differentiable ``rasterize``
-and one ``train_step`` against the CPU path.  The tolerances are
+and one ``train_step`` against the CPU path; for object removal, LaMa
+and ``inpaint_loss``'s gradients against the CPU.  The tolerances are
 ``chip_smoke.py``'s.
 
 Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere.  It imports neither
@@ -698,9 +699,11 @@ def test_render_clip_supersampled_on_the_card(edit_clip):
 
 
 def test_effects_cases_on_the_card_match_the_cpu(dev):
-    """chip_smoke's card-against-CPU cases of the smoke, melt and LPIPS."""
+    """chip_smoke's card-against-CPU cases of the smoke, melt, LPIPS and
+    LaMa."""
     err = cs.card_against_cpu(P)
-    assert set(err) == {"smoke fixed", "smoke adaptive", "melt", "lpips"}
+    assert set(err) == {"smoke fixed", "smoke adaptive", "melt", "lpips",
+                        "lama"}
 
 
 # ---- the edit layer ----------------------------------------------------------
@@ -824,3 +827,70 @@ def test_extraction_on_the_card_matches_the_cpu(dev, tmp_path):
         with open(os.path.join(base["cuda"], name), "rb") as a, \
                 open(os.path.join(base["cpu"], name), "rb") as b:
             assert a.read() == b.read(), name
+
+
+# ---- object removal -------------------------------------------------------------
+
+
+def test_lama_on_the_card_matches_the_cpu(dev):
+    """A tiny seeded LaMa (ngf 8, 2 downsamples, 2 blocks) on an image
+    whose 1/4 width is odd: the generator on the card within 1e-4 of the
+    CPU's output range, ``inpaint_with_params`` within 1 in 8 bits and
+    exact outside the hole; cuDNN's TF32 flag left at PyTorch's
+    default."""
+    from autovfx_tpu_torch.perception import lama
+    from autovfx_tpu_torch.utils.synthetic import lama_state_dict
+
+    before = _flags()
+    sd = lama_state_dict(ngf=8, n_down=2, n_blocks=2, seed=4)
+    params = {d: lama.convert_torch_state_dict(sd, device=d)
+              for d in ("cuda", "cpu")}
+    x = torch.from_numpy(np.random.default_rng(13).normal(
+        0, 1, (1, 4, 40, 72)).astype(np.float32))
+    out = {d: lama.lama_generator(p, x.to(d)).cpu() for d, p in params.items()}
+    span = (out["cpu"].max() - out["cpu"].min()).item()
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-4 * span
+    rng = np.random.default_rng(14)
+    img = rng.integers(0, 256, (40, 72, 3), dtype=np.uint8)
+    mask = np.zeros((40, 72), bool)
+    mask[8:30, 20:50] = True
+    got, want = (lama.inpaint_with_params(params[d], img, mask, device=d)
+                 for d in ("cuda", "cpu"))
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert (got[~mask] == want[~mask]).all()
+    assert _flags() == before
+
+
+@pytest.mark.parametrize("use_lpips", [False, True])
+def test_inpaint_loss_gradients_match_cpu(scene, use_lpips):
+    """``inpaint_loss`` and its gradients through the kernels against the
+    CPU path's, per field within 1e-3 of its largest magnitude (the
+    differentiable rasterize's budget above), the loss at rtol 1e-4; the
+    flags left at PyTorch's defaults."""
+    from autovfx_tpu_torch.train import inpaint_retrain as IR
+    from autovfx_tpu_torch.train import trainer as T
+
+    g, cam = scene
+    before = _flags()
+    cfg = T.TrainConfig(raster=P.RasterConfig(dup_budget=1 << 16))
+    rng = np.random.default_rng(15)
+    target = torch.from_numpy(rng.random((H, W, 3), np.float32))
+    mask = torch.zeros((H, W), dtype=torch.bool)
+    mask[20:100, 40:160] = True
+    out = {}
+    for d, gg, cc in (("cuda", g, cam), ("cpu", _cpu(g), _cpu(cam))):
+        leaves = {f: getattr(gg, f).clone().requires_grad_(True)
+                  for f in PARAM_FIELDS}
+        off = torch.zeros((gg.capacity, 2), device=d, requires_grad=True)
+        loss, _ = IR.inpaint_loss(dataclasses.replace(gg, **leaves), off, cc,
+                                  target.to(d), mask.to(d), cfg, use_lpips)
+        loss.backward()
+        out[d] = (loss.item(), {f: v.grad.cpu() for f, v in leaves.items()})
+        out[d][1]["mean2d_offset"] = off.grad.cpu()
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for f, want in out["cpu"][1].items():
+        got = out["cuda"][1][f]
+        err = (got - want).abs().max().item() / (want.abs().max().item()
+                                                 + 1e-12)
+        assert err < 1e-3, (f, err)
+    assert _flags() == before

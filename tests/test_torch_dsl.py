@@ -8,8 +8,7 @@
 - ``exec_safe``'s guards, ``tests/test_edit.py``'s offline program, the
   LLM disk cache across packages, the prompts shipped with the port;
 - the port's CLI (``python -m autovfx_tpu_torch.edit_scene --device
-  cpu``) writes its frames and edit config;
-- the DSL functions of slice 7b raise ``NotImplementedError``.
+  cpu``) writes its frames and edit config.
 """
 import inspect
 import json
@@ -40,8 +39,6 @@ PROMPTS = os.path.join(os.path.dirname(LMP.__file__), "prompts")
 DEFAULT = TPE.parse_exemplars(os.path.join(PROMPTS, "planner_prompt.txt"))
 WAYMO = TPE.parse_exemplars(os.path.join(PROMPTS,
                                          "planner_prompt_waymo.txt"))
-SLICE_7B = ("retrieve_asset", "remove_object", "retrieve_material",
-            "retrieve_chatsim_asset")
 
 
 def _port_object(name):
@@ -209,17 +206,6 @@ def test_llm_cache_round_trips_across_packages(tmp_path):
     port = CACHE.DiskCache(str(tmp_path))
     assert port.get(dict(kw, query="b")) == "two" and kw in port
     assert port.get(dict(kw, query="c")) is None
-
-
-@pytest.mark.parametrize("name", SLICE_7B + ("update_object",))
-def test_slice_7b_dsl_functions_raise(name):
-    obj = _port_object("thing")
-    args = {"retrieve_asset": (None, "chair"), "remove_object": (None, obj),
-            "retrieve_material": (None, "wood"),
-            "retrieve_chatsim_asset": (None, "car"),
-            "update_object": (TPE.StubScene(), obj)}[name]
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        getattr(EU, name)(*args)
 
 
 def test_cli_runs_an_offline_program_on_the_cpu(tmp_path):

@@ -9,8 +9,7 @@ masks rendered from the box's splats alone and written as PNGs).
   library's bicubic filter does (the port on the device, bit for bit);
 - ``detect_object``: the same object dict but for its random id;
 - ``get_largest_object``, ``merge_instances`` and a seeded
-  ``sample_point_on_object``: equal results;
-- the inpainting wrappers (object removal, slice 7b) raise.
+  ``sample_point_on_object``: equal results.
 """
 import os
 import random
@@ -280,16 +279,6 @@ def test_single_view_extraction_matches_jax(extracted):
     want = JEX.extract_object_from_single_view(js, "box", mask)
     assert got.shape == want.shape and len(got) > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-
-
-@pytest.mark.parametrize("name,args", [
-    ("inpaint_img_with_lama", (np.zeros((4, 4, 3)), np.zeros((4, 4)))),
-    ("inpaint_img", ("img.png",)),
-    ("fill_img_with_sd", (np.zeros((4, 4, 3)), np.zeros((4, 4)), "fill")),
-])
-def test_inpainting_wrappers_are_slice_7b(name, args):
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        getattr(W, name)(*args)
 
 
 def test_missing_masks_raise(extracted, tmp_path):

@@ -38,7 +38,7 @@ RENDER_500 = textwrap.dedent("""
     assert state.step == 1 and torch.isfinite(aux.loss)
     assert not torch.equal(state.gaussians.xyz, g.xyz)
     # every module of the package imports without JAX
-    import importlib, pkgutil
+    import dataclasses, importlib, pkgutil
     for info in pkgutil.walk_packages(P.__path__, "autovfx_tpu_torch."):
         importlib.import_module(info.name)
     from autovfx_tpu_torch.physics import world as W
@@ -92,6 +92,42 @@ RENDER_500 = textwrap.dedent("""
     assert edit.shape == (2, 48, 64, 3) and torch.isfinite(edit).all()
     assert os.path.exists(os.path.join(root, "cache", "edit_config.json"))
     assert not bool(scene.overflowed)
+    # a removal edit: the object's extraction outputs made by hand, LaMa
+    # from a tiny seeded checkpoint, 3 retraining steps, then
+    # remove_object finds them, swaps the mesh and reloads the splats
+    from autovfx_tpu_torch.perception import extract
+    from autovfx_tpu_torch.train import inpaint_retrain
+    from autovfx_tpu_torch.utils.synthetic import lama_state_dict
+    base = os.path.join(scene.cache_dir, "extract", "cube", "1")
+    for sub in ("object_mesh", "removal_mesh"):
+        os.makedirs(os.path.join(base, sub))
+    mesh_io.save_obj(os.path.join(base, "object_mesh", "object_mesh.obj"),
+                     mesh_io.Mesh(corners, faces))
+    mesh_io.save_obj(os.path.join(base, "removal_mesh", "removal_mesh.obj"),
+                     mesh_io.Mesh(ground, np.array([[0, 1, 2], [0, 2, 3]])))
+    ply_io.save_ply(os.path.join(base, "removal_gaussians.ply"),
+                    dataclasses.replace(g, active=g.xyz[:, 2] > 0))
+    ckpt = os.path.join(root, "lama.ckpt")
+    torch.save({"state_dict": lama_state_dict(8, 2, 1)}, ckpt)
+    os.environ["AUTOVFX_LAMA_CKPT"] = ckpt
+    extract.inpaint_object(scene, "cube", 1)
+    inpaint_retrain.training_3DGS_for_inpainting(
+        scene, os.path.join(base, "removal_gaussians.ply"),
+        os.path.join(base, "render_inpaint_lama"),
+        os.path.join(base, "render_inpaint_mask"), base,
+        os.path.join(base, "inpaint_camera_poses.json"), iterations=3,
+        device="cpu")
+    EU.remove_object(scene, {"object_name": "cube", "object_id": "c1",
+        "object_path": os.path.join(base, "object_mesh", "object_mesh.obj")})
+    assert scene.scene_mesh_path_for_blender.endswith(
+        "inpaint_removal_mesh.obj")
+    assert scene.gaussians.capacity == int((g.xyz[:, 2] > 0).sum())
+    edit = scene.render_scene()
+    assert edit.shape == (2, 48, 64, 3) and torch.isfinite(edit).all()
+    new = {"perception.lama", "train.inpaint_retrain", "render.preview",
+           "retrieval.objaverse_index", "retrieval.wrappers",
+           "retrieval.build_index", "perception.gpt4v", "utils.video"}
+    assert {"autovfx_tpu_torch." + m for m in new} <= set(sys.modules)
     blocked = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "autovfx_tpu")
                and sys.modules[m] is not None]
@@ -196,12 +232,23 @@ def _entry_points():
     """The loaders and constructors that put tensors on a device."""
     from autovfx_tpu_torch import convert
     from autovfx_tpu_torch.core import cameras, ply_io
+    from autovfx_tpu_torch.perception import lama
     from autovfx_tpu_torch.physics import shapes, world
-    from autovfx_tpu_torch.render import clip, emitter, ibl, meshsplat
-    from autovfx_tpu_torch.train import checkpoint, densify, init_points
-    from autovfx_tpu_torch.utils import synthetic
+    from autovfx_tpu_torch.render import clip, emitter, ibl, meshsplat, preview
+    from autovfx_tpu_torch.train import (
+        checkpoint, densify, init_points, inpaint_retrain,
+    )
+    from autovfx_tpu_torch.utils import synthetic, video
 
     return {
+        "load_lama_params": lama.load_lama_params,
+        "convert_torch_state_dict": lama.convert_torch_state_dict,
+        "inpaint_with_params": lama.inpaint_with_params,
+        "training_3DGS_for_inpainting":
+            inpaint_retrain.training_3DGS_for_inpainting,
+        "render_asset_previews": preview.render_asset_previews,
+        "preview_views": preview.preview_views,
+        "render_trajectory": video.render_trajectory,
         "RigidWorld.from_objects": world.RigidWorld.from_objects,
         "build_hulls": shapes.build_hulls,
         "build_mesh_grid": shapes.build_mesh_grid,
@@ -289,7 +336,39 @@ def _calls(tmp_path):
                              "plane_mask": np.ones((1, 8), bool)})()
     clip_arrays = {"surf_points": corners, "light_dirs": corners}
     images = np.zeros((2, 16, 24, 3), np.float32)
+    from autovfx_tpu_torch.perception import lama
+    from autovfx_tpu_torch.utils import png
+    from autovfx_tpu_torch.utils.synthetic import lama_state_dict
+
+    sd = lama_state_dict(8, 2, 1)
+    lama_ckpt = str(tmp_path / "lama.ckpt")
+    torch.save({"state_dict": sd}, lama_ckpt)
+    lama_cpu = lama.convert_torch_state_dict(sd, device="cpu")
+    views = tmp_path / "views"
+    views.mkdir()
+    for name in ("00000.png", "00001.png"):
+        png.write_png(str(views / name), np.zeros((16, 24, 3), np.uint8))
+    scene = type("Scene", (), {"scene_scale": 1.0, "hparams": type(
+        "Hparams", (), {"dup_budget": 1 << 12})()})()
+    cube = str(tmp_path / "cube.obj")
+    mesh_io.save_obj(cube, mesh_io.Mesh(corners, tri))
     return {
+        "load_lama_params": lambda: fns["load_lama_params"](lama_ckpt).out_w,
+        "convert_torch_state_dict": lambda: fns["convert_torch_state_dict"](
+            sd).out_w,
+        "inpaint_with_params": lambda: fns["inpaint_with_params"](
+            lama_cpu, np.zeros((16, 24, 3), np.uint8),
+            np.ones((16, 24), bool)),
+        "training_3DGS_for_inpainting": lambda: fns[
+            "training_3DGS_for_inpainting"](
+            scene, ply, str(views), str(views), str(tmp_path), traj,
+            iterations=1),
+        "render_asset_previews": lambda: fns["render_asset_previews"](
+            cube, str(tmp_path / "previews"), "cube", num_views=1, size=16),
+        "preview_views": lambda: fns["preview_views"](cube, 1, 16),
+        "render_trajectory": lambda: fns["render_trajectory"](
+            g, cam_batch, str(tmp_path / "traj_out"),
+            config=autovfx_tpu_torch.RasterConfig(dup_budget=1 << 12)),
         "RigidWorld.from_objects": lambda: fns["RigidWorld.from_objects"](
             [{"pos": [0, 0, 1]}], [corners]).state,
         "build_hulls": lambda: fns["build_hulls"]([corners])[0],
@@ -333,9 +412,12 @@ def _calls(tmp_path):
     }
 
 
-# entry points that compute on the device and return numpy arrays
+# entry points that compute on the device and return numpy arrays or
+# the paths of the files they wrote
 HOST_RESULTS = ("prefilter_envmap_ggx", "build_init_points",
-                "ray_mesh_init_points")
+                "ray_mesh_init_points", "inpaint_with_params",
+                "training_3DGS_for_inpainting", "render_asset_previews",
+                "render_trajectory")
 
 
 def _tensors(x):
