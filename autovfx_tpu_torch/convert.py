@@ -5,7 +5,8 @@ Takes plain arrays (``np.asarray`` of each field of another package's
 returns this package's dataclasses on a chosen device; ``train_state``
 takes a whole training state in the arrays of a checkpoint,
 ``clip_inputs`` an edited clip's inputs (with its smoke volume and melt
-tracers), ``lpips_params`` the LPIPS network's weights and
+tracers), ``bound_gaussians`` refined SuGaR's mesh-bound Gaussians,
+``lpips_params`` the LPIPS network's weights and
 ``lama_params_from_jax`` the LaMa generator's.  Only
 arrays cross the boundary, so nothing here imports another framework.
 """
@@ -120,6 +121,23 @@ def clip_inputs(arrays: Mapping, bg: Gaussians, cams: Camera, *,
         out[name] = torch.tensor(np.asarray(arrays[name]), device=device).to(dt)
     return ClipInputs(bg=bg, cams=cams, **out)
 
+
+def bound_gaussians(arrays: Mapping, *, device=devices.DEFAULT):
+    """A ``sugar.refine.BoundGaussians`` from arrays named like its
+    fields (``vertices``, ``faces``, ``bary``, ``log_scales2d``,
+    ``rot_complex``, ``vertex_colors``, ``opacity_logit`` and, optionally,
+    the float ``thickness_ratio``); ``faces`` becomes int64."""
+    from autovfx_tpu_torch.sugar.refine import BoundGaussians
+
+    device = devices.resolve(device)
+    out = {f.name: _f32(arrays[f.name], device)
+           for f in dataclasses.fields(BoundGaussians)
+           if f.name not in ("faces", "thickness_ratio")}
+    out["faces"] = torch.tensor(np.asarray(arrays["faces"], np.int64),
+                                device=device)
+    if arrays.get("thickness_ratio") is not None:
+        out["thickness_ratio"] = float(arrays["thickness_ratio"])
+    return BoundGaussians(**out)
 
 
 def lpips_params(convs, lins, source: str, *, device=devices.DEFAULT):

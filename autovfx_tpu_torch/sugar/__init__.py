@@ -1,1 +1,2 @@
-"""Mesh decimation for the mirror-bounce scene mesh."""
+"""SuGaR: the density field and its regularization, coarse training, mesh
+extraction, mesh-bound refinement and mesh decimation."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the novel view,
-training, the edited frame, its effects, a panorama, and an edit program
-and a removal program through the port's edit entry.
+training, the edited frame, its effects, a panorama, an edit program
+and a removal program through the port's edit entry, and the SuGaR
+reconstruction through the port's CLI.
 
 Run from the root of a checkout, with no arguments:
 
@@ -82,9 +83,28 @@ in (never JAX, never ``autovfx_tpu``) and
     their plain versions), the scene swap, the table gone from camera
     0's view, the retrieval and a preview's kernels, the ball at rest on
     the patch, and the launches; and times its stages and a frame;
-13. times the physics substep and the edited clip's replay (last: the
+13. runs the port's reconstruction CLI, ``train_gaussians.main``, on a
+    COLMAP scene written here (the garden-like scene's 1M centres as the
+    SfM points, the ring's 8 views rendered at 1296×840 as PNGs) at the
+    reference's SuGaR widths with the step counts cut (``SUGAR_CLI``):
+    3DGS, coarse SuGaR (each step's launches counted: kernels 1-4 and
+    the preprocess backward once a plain step, twice a regularized
+    one), the Poisson extraction, the bound Gaussians, their texture
+    and the metrics; then ``refine_train`` on the bound Gaussians and
+    the TSDF and density-grid extractions; checks the files, states,
+    meshes and the level-set RMS against uniform points; times the
+    stages and a regularized step's device operations; and holds a
+    plain and a regularized coarse step, the level set and the Poisson
+    mesh of the 600-splat shell to the CPU; no render of the CLI, the
+    refinement or the side extractions may overflow; kernels 1-3, kernel
+    4 and the preprocess backward are held to their plain versions on
+    the refined Gaussians at the refinement's budget, on a ring view of
+    the coarse Gaussians at the CLI's budget, and (the two backward ones)
+    on the inputs a regularized coarse step gives them: kernel 4 with
+    the SuGaR terms' depth and alpha cotangents;
+14. times the physics substep and the edited clip's replay (last: the
     profiler's sessions after its long one lose records);
-14. puts each kernel's time on each path beside its bound (``bound``:
+15. puts each kernel's time on each path beside its bound (``bound``:
     the least time the card could take, from the bytes and operations
     that path's inputs need, ``*_work``) and their ratio, the share.
 
@@ -95,11 +115,13 @@ launch counts, times and bounds), the card's name and power limit as
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -267,9 +289,45 @@ TABLE_GONE_DIFF, TABLE_GONE_SHARE = 0.1, 0.5
 PARITY_LAMA_HW = (96, 128)
 LAMA_RANGE_TOL = 1e-4  # of the CPU output's range
 
+# the SuGaR pipeline through the port's reconstruction CLI (BASELINE
+# config 3): the reference's widths (1M SfM points in 2M slots, 1M SDF
+# samples a step, a 192³ Poisson grid, a 96³ background grid, level 0.3,
+# 1M target vertices) at the ring's 1296×840; only the step counts are
+# cut: 3DGS 1,000 of 15,000, coarse 40 of 7,000, regularized from 20,
+# not 2,000.  The prune at regularize_from keeps opacity >= 0.5, and the
+# CLI's Gaussians start at 0.1: on this scene (its far shell hides most
+# of the rest from the ring) 14 of 1M pass after 79 steps, ~16,000 after
+# 800 on an H100, so 60 3DGS steps would leave nothing to mesh.
+SUGAR_ITERATIONS = 1000
+SUGAR_REGULARIZE_FROM = 20
+SUGAR_CLI = ["--downscale", "1", "--capacity", "2000000", "--iterations",
+             str(SUGAR_ITERATIONS), "--coarse_iterations", "40",
+             "--regularize_from", str(SUGAR_REGULARIZE_FROM),
+             "--mesh_resolution", "192", "--target_vertices", "1000000",
+             "--surface_level", "0.3"]
+SUGAR_TILE = 16  # the CLI's RasterConfig
+SUGAR_TARGET_VERTICES = 1_000_000
+SUGAR_SIDE_RES = 96  # the TSDF and density-grid extractions
+REFINE_STEPS = 20
+TRAIN_LIKE = ("preprocess", "duplicate_with_keys", "blend_fwd_train",
+              "blend_bwd", "preprocess_bwd")  # a training pass's launches
+RMS_VERTICES = 20_000  # mesh vertices the level-set RMS reads
+# the card against the CPU on the 600-splat shell (tests/test_sugar.py)
+SHELL_SPLATS, SHELL_SAMPLES, SHELL_POISSON_RES = 600, 4096, 48
+SHELL_W, SHELL_H = 64, 48
+LEVEL_AGREE, LEVEL_POINT_TOL = 0.995, 1e-4
+STATE_TOL = 5e-4  # of each field's largest magnitude, after Adam
+LOSS_RTOL = 1e-5
+
 # tolerances of the kernel checks
 MEAN2D_ATOL = 1e-4  # px, plus 2 float32 ulps of the coordinate
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6  # conic, color, depth
+# Past FLOAT_RTOL a conic row is held to a float64 evaluation instead
+# (``conic_against_exact``): within this many float32 ulps times the 2D
+# covariance's condition number κ.  Each float32 version came within
+# 17.1 of them on the SuGaR refinement's thin splats (κ up to 583, on
+# an H100): the kernel, and the plain version on the card alike.
+CONIC_KAPPA_ULPS = 32.0
 OPACITY_ATOL = 1e-6
 INT_EXACT_FRACTION = 0.999  # radius / tile rect / tiles_touched
 BLEND_PSNR_DB = 70.0
@@ -668,9 +726,11 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
 # ---- kernel checks -----------------------------------------------------------
 
 
-def check_preprocess(got, want, what: str) -> float:
+def check_preprocess(got, want, what: str, exact=None) -> float:
     """Kernel 1 against the plain preprocess; returns the max abs error
-    of the float fields on the splats both call live."""
+    of the float fields on the splats both call live.  A conic row
+    outside the tolerance passes only against ``exact()``, a float64
+    evaluation (``conic_against_exact``)."""
     live = (got.tiles_touched > 0) & (want.tiles_touched > 0)
     errs = []
 
@@ -685,22 +745,66 @@ def check_preprocess(got, want, what: str) -> float:
         errs.append(d_live.max().item())
 
     agree("mean2d", MEAN2D_ATOL + 2.0**-22 * want.mean2d.abs())
-    for f in ("conic", "color", "depth"):
+    for f in ("color", "depth"):
         agree(f, FLOAT_ATOL + FLOAT_RTOL * getattr(want, f).abs())
+    d = (got.conic - want.conic).abs()
+    off = live & (d > FLOAT_ATOL + FLOAT_RTOL * want.conic.abs()).any(1)
+    if bool(off.any()):
+        check(exact is not None, f"{what}: conic off by "
+              f"{d[off].max().item()} on {int(off.sum())} rows")
+        conic_against_exact(got, exact(), off, what)
+    errs.append(torch.where(live[:, None], d, torch.zeros_like(d)).max()
+                .item())
     d = (got.opacity - want.opacity).abs()
     check(d.max().item() <= OPACITY_ATOL, f"{what}: opacity off by {d.max()}")
     errs.append(d.max().item())
     for f in ("radius", "tile_min", "tile_max", "tiles_touched"):
         d = (getattr(got, f).long() - getattr(want, f).long()).abs()
         d = d.reshape(d.shape[0], -1).amax(dim=1)
-        exact = (d == 0).double().mean().item()
-        check(exact >= INT_EXACT_FRACTION, f"{what}: {f} exact on {exact}")
+        share = (d == 0).double().mean().item()
+        check(share >= INT_EXACT_FRACTION, f"{what}: {f} exact on {share}")
         if f != "tiles_touched":  # an area moves by a rect's side
             check(d.max().item() <= 1, f"{what}: {f} off by {d.max()}")
     area = (got.tile_max - got.tile_min).prod(dim=1)
     check(bool((got.tiles_touched == torch.where(got.radius > 0, area, 0))
                .all()), f"{what}: tiles_touched is not the rect area")
     return max(errs)
+
+
+def preprocess_exact(P, g, cam, tile: int):
+    """The plain preprocess in float64: the parameters and the camera
+    cast."""
+    from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS
+
+    cast = lambda x, names: dataclasses.replace(x, **{
+        n: torch.as_tensor(getattr(x, n)).double() for n in names})
+    return P.ops.projection.preprocess(
+        cast(g, PARAM_FIELDS), cast(cam, ("R", "t", "fx", "fy", "cx", "cy")),
+        tile=tile)
+
+
+def conic_against_exact(got, exact, rows, what) -> None:
+    """Kernel 1's conic on ``rows`` within ``CONIC_KAPPA_ULPS`` float32
+    ulps, times the 2D covariance's condition number κ, of the row's
+    largest entry of the float64 evaluation ``exact``.  Any float32
+    det = ac - b² loses κ-fold relative precision, so where κ is large
+    (thin splats seen edge-on) two float32 evaluations differ by more
+    than ``FLOAT_RTOL``; the plain version is then as far from float64
+    as the kernel."""
+    q = exact.conic[rows]
+    a, b, c = q.unbind(-1)
+    mid, rad = (a + c) / 2, torch.sqrt(((a - c) / 2) ** 2 + b * b)
+    kappa = (mid + rad) / torch.clamp(mid - rad, min=1e-300)
+    ulps = ((got.conic[rows].double() - q).abs().amax(1)
+            / (2.0**-24 * kappa * q.abs().amax(1)))
+    check(bool((ulps <= CONIC_KAPPA_ULPS).all()),
+          f"{what}: conic {ulps.max().item():.3g} κ-ulps from float64 on "
+          f"{int(rows.sum())} ill-conditioned rows (κ up to "
+          f"{kappa.max().item():.3g})")
+    print(f"{what}: {int(rows.sum())} rows of conditioning κ "
+          f"{kappa.min().item():.3g}-{kappa.max().item():.3g} outside the "
+          f"conic's tolerance of the plain version, within "
+          f"{ulps.max().item():.3g} κ-ulps of float64")
 
 
 def check_duplicates(P, splats, tiles_x, n_tiles, budget, what) -> float:
@@ -805,7 +909,8 @@ def check_view_kernels(P, g, cam, budget, tile, rng, what) -> dict:
     tx, ty = ops.projection.num_tiles(w, h, tile)
     s = ops.preprocess_cuda.preprocess_kernel(g, cam, tile=tile)
     err = {"preprocess": check_preprocess(
-        s, ops.projection.preprocess(g, cam, tile=tile), what)}
+        s, ops.projection.preprocess(g, cam, tile=tile), what,
+        exact=lambda: preprocess_exact(P, g, cam, tile))}
     err["duplicate_with_keys"] = check_duplicates(P, s, tx, tx * ty, budget,
                                                   what)
     b = ops.binning.bin_splats(s, w, h, budget, tile=tile)
@@ -1147,8 +1252,11 @@ def check_blend_bwd(P, g, cam, tile, rng, what, tiles=None):
                                   what, tiles)
 
 
-def check_blend_bwd_binned(P, b, s, w, h, tile, rng, what, tiles=None):
-    """``check_blend_bwd`` on a binned view ``b`` of splats ``s``."""
+def check_blend_bwd_binned(P, b, s, w, h, tile, rng, what, tiles=None,
+                           grads=None):
+    """``check_blend_bwd`` on a binned view ``b`` of splats ``s``; with
+    ``grads`` (the color, depth and alpha images' cotangents, zeroed as
+    the random ones are) in place of random ones."""
     ops = P.ops
     images, state = ops.blend_cuda.blend_train_kernel(b, s, w, h, tile)
     for x, y in zip(images, ops.blend_cuda.blend_kernel(b, s, w, h, tile)):
@@ -1169,7 +1277,11 @@ def check_blend_bwd_binned(P, b, s, w, h, tile, rng, what, tiles=None):
     n_px, n_zeroed = int(image(chosen).sum()), int(image(marked).sum())
     check(n_zeroed <= MAX_AMBIGUOUS_SHARE * n_px,
           f"{what}: {n_zeroed} of {n_px} pixels decide within rounding")
-    grads = image_grads(h, w, rng, keep)
+    if grads is None:
+        grads = image_grads(h, w, rng, keep)
+    else:
+        grads = [(grads[0] * keep[..., None]).contiguous(),
+                 (grads[1] * keep).contiguous(), (grads[2] * keep).contiguous()]
     got = ops.blend_cuda.blend_bwd_kernel(b, s, state, *grads, w, h, tile)
     want = plain_blend_bwd(P, b, s, grads, tile, tiles)
     return (*check_fields(got, want, BLEND_BWD_TOL, f"{what} blend_bwd"),
@@ -3409,6 +3521,678 @@ def removal_program_point(P, card: str) -> tuple[dict, dict]:
     return launches, err
 
 
+# ---- the SuGaR pipeline --------------------------------------------------------
+
+COLMAP_POINT = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                         ("error", "<f8"), ("track", "<u8")])
+SH_C0 = 0.28209479177387814
+
+
+def write_colmap_model(sparse: str, cams, xyz: np.ndarray,
+                       rgb8: np.ndarray) -> None:
+    """A COLMAP binary model in ``sparse``: one PINHOLE camera with the
+    first camera's intrinsics, an image ``view_<i>.png`` at each camera's
+    pose, and the points (``rgb8`` uint8) with empty tracks."""
+    from autovfx_tpu_torch.core.quaternion import rotmat_to_quat
+    from autovfx_tpu_torch.dataset.colmap import qvec_to_rotmat
+
+    os.makedirs(sparse, exist_ok=True)
+    c0 = cams[0]
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, c0.width, c0.height))
+        f.write(struct.pack("<4d", *(float(x) for x in (c0.fx, c0.fy, c0.cx,
+                                                        c0.cy))))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for i, cam in enumerate(cams):
+            R = cam.R.double().cpu()
+            q = rotmat_to_quat(R).numpy()
+            check(np.abs(qvec_to_rotmat(q) - R.numpy()).max() < 1e-6,
+                  f"camera {i}: the quaternion does not give its rotation")
+            f.write(struct.pack("<i4d3di", i + 1, *q,
+                                *cam.t.double().cpu().numpy(), 1))
+            f.write(f"view_{i}.png".encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+    rec = np.zeros(len(xyz), COLMAP_POINT)
+    rec["id"] = np.arange(len(xyz))
+    rec["xyz"] = xyz
+    rec["rgb"] = rgb8
+    rec["error"] = 0.5
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)) + rec.tobytes())
+
+
+def sugar_scene_files(P, root: str) -> int:
+    """A COLMAP scene under ``root`` (``sparse/0`` and ``images/``): one
+    PINHOLE camera with the ring's intrinsics at 1296×840, the ring's 8
+    poses, the 1M centres of the garden-like scene (seed 0) with their
+    SH-DC colours as the SfM points, and the 8 views rendered by the port
+    at tile 16 as PNGs.  Returns the CLI's duplicate budget: the worst
+    ring view of the scene and of the Gaussians the CLI starts from, with
+    the training point's headroom."""
+    from autovfx_tpu_torch.train.trainer import init_gaussians_from_points
+    from autovfx_tpu_torch.utils import png
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like
+
+    ops = P.ops
+    t0 = time.perf_counter()
+    g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
+    cams = ring_cameras()
+    rgb = torch.clamp(g.sh_dc * SH_C0 + 0.5, 0.0, 1.0)
+    rgb8 = torch.round(rgb * 255.0).to(torch.uint8)
+    start = init_gaussians_from_points(g.xyz, rgb8.float() / 255.0)
+    need = lambda x, c: int(ops.binning.required_budget(
+        ops.preprocess_cuda.preprocess(x, c, tile=SUGAR_TILE)))
+    worst = max(need(x, c) for x in (g, start) for c in cams)
+    budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK * 1.25)
+    del start
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    write_colmap_model(os.path.join(root, "sparse", "0"), cams,
+                       g.xyz.cpu().numpy(), rgb8.cpu().numpy())
+    config = P.RasterConfig(dup_budget=budget, tile=SUGAR_TILE)
+    with torch.no_grad():
+        for i, cam in enumerate(cams):
+            out = P.rasterize(g, cam, config=config)
+            check(not bool(out.overflow), f"view {i}: overflow")
+            png.write_png(os.path.join(images, f"view_{i}.png"),
+                          (torch.clamp(out.color, 0, 1) * 255.0).to(
+                              torch.uint8).cpu().numpy())
+    print(f"SuGaR scene: {N_SPLATS} SfM points and {len(cams)} views at "
+          f"{WIDTH}x{HEIGHT} written as a COLMAP model in "
+          f"{time.perf_counter() - t0:.1f} s; duplicates: worst view {worst} "
+          f"(of the scene and of the CLI's start), budget {budget}")
+    return budget
+
+
+def rms_to_levelset(P, g, verts: np.ndarray, level: float) -> float:
+    """bench.py:602-613's statistic: the RMS of |clip(density, 0, 1) −
+    level| at the vertices (every n-th, at most ``RMS_VERTICES``)."""
+    from autovfx_tpu_torch.sugar import density as D
+    from autovfx_tpu_torch.sugar.levelset import _nearest_gaussian
+
+    sel = torch.as_tensor(np.asarray(verts, np.float32)[
+        ::max(-(-len(verts) // RMS_VERTICES), 1)], device=DEVICE)
+    with torch.no_grad():
+        nbrs = D.reset_neighbors(g, k=16)[_nearest_gaussian(sel, g)]
+        dens = D.compute_density(sel, nbrs, g).cpu().numpy()
+    return float(np.sqrt(np.mean((np.clip(dens, 0, 1) - level) ** 2))), len(sel)
+
+
+@contextlib.contextmanager
+def overflow_watch(ops):
+    """Within it, every ``binning.bin_splats`` call ORs its overflow flag
+    into the yielded dict's ``"any"`` (a device bool: no sync)."""
+    real = ops.binning.bin_splats
+    seen = {"any": torch.zeros((), dtype=torch.bool, device=DEVICE)}
+
+    def bin_splats(*a, **k):
+        out = real(*a, **k)
+        seen["any"] = seen["any"] | out.overflow
+        return out
+
+    ops.binning.bin_splats = bin_splats
+    try:
+        yield seen
+    finally:
+        ops.binning.bin_splats = real
+
+
+def counted_renders(clock: StageClock, owners) -> list:
+    """Count each call of ``owner.rasterize`` (the forward renders) in
+    ``clock.renders``; returns the ``(owner, attr, fn)`` to restore."""
+    saved = []
+    for owner in owners:
+        fn = owner.rasterize
+        saved.append((owner, "rasterize", fn))
+
+        def render(*a, fn=fn, **k):
+            clock.renders += 1
+            return fn(*a, **k)
+
+        owner.rasterize = render
+    return saved
+
+
+def capture_backward(P, step) -> dict:
+    """The inputs of every kernel-4 and preprocess-backward launch of one
+    ``step()``; the Gaussians and the splat gradients cloned (Adam
+    updates the Gaussians in place after the backward)."""
+    ops = P.ops
+    calls = {"blend_bwd": [], "preprocess_bwd": []}
+    real_b = ops.blend_cuda.blend_bwd_kernel
+    real_p = ops.preprocess_cuda.preprocess_bwd_kernel
+
+    def blend_bwd(*a):
+        calls["blend_bwd"].append(a)
+        return real_b(*a)
+
+    def preprocess_bwd(g, cam, tiles_touched, d, *a):
+        clone = lambda x: dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)})
+        calls["preprocess_bwd"].append(
+            (clone(g), cam, tiles_touched,
+             type(d)(*(x.clone() for x in d)), *a))
+        return real_p(g, cam, tiles_touched, d, *a)
+
+    ops.blend_cuda.blend_bwd_kernel = blend_bwd
+    ops.preprocess_cuda.preprocess_bwd_kernel = preprocess_bwd
+    try:
+        step()
+        sync()
+    finally:
+        ops.blend_cuda.blend_bwd_kernel = real_b
+        ops.preprocess_cuda.preprocess_bwd_kernel = real_p
+    return calls
+
+
+def cotangent_tiles(P, grads, w: int, h: int, tile: int, rng):
+    """``CHECK_TILES`` seeded tiles among those where one of the image
+    cotangents ``grads`` is not zero (all of them when fewer)."""
+    tx, ty = P.ops.projection.num_tiles(w, h, tile)
+    mag = grads[0].abs().sum(-1) + grads[1].abs() + grads[2].abs()
+    live = np.flatnonzero((P.ops.blend_ref.split_tiles(mag, tx, ty, tile)
+                           .amax(1) > 0).cpu().numpy())
+    pick = rng.choice(live, min(CHECK_TILES, len(live)), replace=False)
+    return torch.from_numpy(np.sort(pick)).to(DEVICE)
+
+
+def check_step_backward(P, calls, rng, what) -> dict:
+    """Kernel 4 and the preprocess backward against their plain versions
+    on the inputs ``capture_backward`` took from a regularized coarse
+    step: two launches of each, one of kernel 4's with the depth and
+    alpha cotangents of the SuGaR terms (checked on ``CHECK_TILES``
+    tiles where they are not zero), the other with the photometric
+    loss's color cotangent."""
+    ops = P.ops
+    check(len(calls["blend_bwd"]) == 2 and len(calls["preprocess_bwd"]) == 2,
+          f"{what}: {len(calls['blend_bwd'])} kernel-4 and "
+          f"{len(calls['preprocess_bwd'])} preprocess-backward launches, not 2")
+    err = {"blend_bwd": 0.0, "preprocess_bwd": 0.0}
+    notes = []
+    has_da = []
+    for b, s, _, gc, gd, ga, w, h, tile in calls["blend_bwd"]:
+        grads = (gc, gd, ga)
+        tiles = cotangent_tiles(P, grads, w, h, tile, rng)
+        tx, ty = b.num_tiles_x, b.num_tiles_y
+        on = lambda x: ops.blend_ref.split_tiles(x, tx, ty, tile)[tiles]
+        n_d, n_a = int((on(gd) != 0).sum()), int((on(ga) != 0).sum())
+        has_da.append(n_d > 0 and n_a > 0)
+        e, r, zeroed, n_px = check_blend_bwd_binned(
+            P, b, s, w, h, tile, rng, f"{what} kernel 4", tiles, grads=grads)
+        err["blend_bwd"] = max(err["blend_bwd"], e)
+        notes.append(f"kernel 4 on {len(tiles)} tiles ({n_d} and {n_a} "
+                     f"pixels with depth and alpha cotangents, {zeroed} of "
+                     f"{n_px} zeroed) "
+                     f"max abs err {e:.3g} ({r:.3g} of the largest)")
+    check(sum(has_da) == 1, f"{what}: {sum(has_da)} of kernel 4's launches "
+          "take depth and alpha cotangents on the checked tiles, not 1")
+    for g, cam, tiles_touched, d, *a in calls["preprocess_bwd"]:
+        got = ops.preprocess_cuda.preprocess_bwd_kernel(g, cam, tiles_touched,
+                                                        d, *a)
+        want = ops.preprocess_cuda.preprocess_bwd_plain(g, cam, tiles_touched,
+                                                        d, *a)
+        e, r = check_fields(got, want, PRE_BWD_TOL, f"{what} preprocess_bwd")
+        err["preprocess_bwd"] = max(err["preprocess_bwd"], e)
+        notes.append(f"preprocess_bwd max abs err {e:.3g} ({r:.3g})")
+    sync()
+    print(f"check {what}, its own inputs: " + "; ".join(notes) + ": ok")
+    return err
+
+
+def sugar_cli(P, card: str, root: str, budget: int) -> dict:
+    """``train_gaussians.main`` on the COLMAP scene under ``root``: each
+    3DGS and coarse step's launches, loss and (coarse) time, the stages'
+    wall times and the forward renders recorded; the files, states,
+    losses, launches, the mesh and its level-set RMS checked."""
+    from autovfx_tpu_torch import train_gaussians as TG
+    from autovfx_tpu_torch.core import ply_io
+    from autovfx_tpu_torch.sugar import coarse_train as CT
+    from autovfx_tpu_torch.sugar import extract_mesh as EM
+    from autovfx_tpu_torch.sugar import levelset as LS
+    from autovfx_tpu_torch.sugar import poisson as PO
+    from autovfx_tpu_torch.sugar import refine as R
+    from autovfx_tpu_torch.train import trainer
+    from autovfx_tpu_torch.utils import metrics as MET
+    from autovfx_tpu_torch.utils import png
+
+    ops = P.ops
+    model = os.path.join(root, "model")
+    argv = ["--source_path", root, "--model_path", model, *SUGAR_CLI,
+            "--dup_budget", str(budget), "--device", DEVICE]
+    clock = StageClock()
+    seen = {"coarse": [], "train": []}
+    wrapped = [(trainer, "train_step"), (CT, "coarse_step")]
+    stages = [(TG, "load_scene", "load"), (trainer, "train", "3DGS"),
+              (CT, "coarse_train", "coarse (the rest)"),
+              (ply_io, "save_ply", lambda i: ("snapshot ply", "coarse ply",
+                                              "export")[min(i, 2)]),
+              (EM, "extract_mesh_from_gaussians", "extraction (the rest)"),
+              (EM, "extract_level_points", "level points"),
+              (EM, "remove_outliers", "outliers"),
+              (PO, "_solve", "poisson solve"),
+              (PO, "marching_tetrahedra", "marching tets"),
+              (PO, "poisson_reconstruct", "poisson prune"),
+              (EM, "density_grid_mesh", "background grid"),
+              (EM, "decimate_quadric", "decimation"),
+              (EM, "prune_far_from_gaussians", "prune"),
+              (EM, "vertex_colors", "colours"), (R, "bind_to_mesh", "bind"),
+              (R, "realize", "realize"), (R, "bake_texture", "bake"),
+              (png, "write_png", "export"), (MET, "evaluate", "metrics")]
+    saved = [(o, k, getattr(o, k)) for o, k in wrapped]
+    saved += [(o, k, getattr(o, k)) for o, k, _ in stages]
+    real_train_step, real_coarse_step = (f for _, _, f in saved[:2])
+
+    def train_step(*a, **k):
+        before = counters(ops)
+        state, aux = real_train_step(*a, **k)
+        seen["train"].append(({n: c - before[n] for n, c in
+                               counters(ops).items()}, aux.loss))
+        return state, aux
+
+    def coarse_step(state, cam, image, cfg, regularize, generator,
+                    draws=None):
+        before = counters(ops)
+        sync()
+        t0 = time.perf_counter()
+        out = real_coarse_step(state, cam, image, cfg, regularize, generator,
+                               draws)
+        sync()
+        seen["coarse"].append((regularize, {n: c - before[n] for n, c in
+                                            counters(ops).items()},
+                               time.perf_counter() - t0, out[1].loss))
+        seen["last"] = (cam, image, cfg, generator)
+        return out
+
+    trainer.train_step = train_step
+    CT.coarse_step = coarse_step
+    for owner, attr, stage in stages:
+        clock.wrap(owner, attr, stage)
+    saved += counted_renders(clock, (LS, MET))
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    try:
+        result = TG.main(argv)
+        sync()
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    wall = time.perf_counter() - t0
+    launches = counters(ops)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the files, the states, the losses
+    for name in (f"chkpnt{SUGAR_ITERATIONS}.npz",
+                 f"point_cloud/iteration_{SUGAR_ITERATIONS}/point_cloud.ply",
+                 "sugarcoarse.ply", "mesh.obj", "sugarfine.ply", "texture.png",
+                 "metrics.json"):
+        check(os.path.getsize(os.path.join(model, name)) > 0,
+              f"the CLI did not write {name}")
+    check_state(result["state"], "after 3DGS")
+    check_state(result["coarse_state"], "after coarse SuGaR")
+    losses = ([x.item() for _, x in seen["train"]]
+              + [x[3].item() for x in seen["coarse"]])
+    check(all(np.isfinite(losses)), "a 3DGS or coarse step loss is not finite")
+    coarse_g = result["coarse_state"].gaussians
+    n_active = int(coarse_g.num_active)
+    check(n_active > 0, "the prune at regularize_from left no Gaussian")
+
+    # launches: each 3DGS step and plain coarse step once, a regularized
+    # step twice (kernel 4 and the preprocess backward too), each forward
+    # render (the level set's and the metrics') once
+    one = {k: 1 for k in TRAIN_LIKE}
+    for i, (counts, _) in enumerate(seen["train"]):
+        check_launches(counts, one, f"3DGS step {i + 1}")
+    n_reg = 0
+    for i, (reg, counts, _, _) in enumerate(seen["coarse"]):
+        check(reg == (i + 1 >= SUGAR_REGULARIZE_FROM), f"coarse step {i + 1}")
+        check_launches(counts, {k: 1 + reg for k in TRAIN_LIKE},
+                       f"coarse step {i + 1} (regularized {reg})")
+        n_reg += reg
+    n_train, n_coarse = len(seen["train"]), len(seen["coarse"])
+    steps = n_train + n_coarse + n_reg
+    views = clock.renders
+    check(views > 0, "the CLI rendered no view outside its training steps")
+    check_launches(launches, {**{k: steps for k in TRAIN_LIKE},
+                              "preprocess": steps + views,
+                              "duplicate_with_keys": steps + views,
+                              "blend_fwd": views}, "the CLI")
+
+    # the mesh and its distance to the level set
+    mesh = result["mesh"]
+    check(0 < len(mesh.vertices) <= SUGAR_TARGET_VERTICES
+          and len(mesh.faces) > 0 and np.isfinite(mesh.vertices).all(),
+          f"the mesh: {len(mesh.vertices)} vertices, {len(mesh.faces)} faces")
+    rms, n_sel = rms_to_levelset(P, coarse_g, mesh.vertices, 0.3)
+    centers = result["cams"].center.cpu().numpy()
+    c_ext = np.maximum(centers.max(0) - centers.min(0), 0.5)
+    mid = (centers.min(0) + centers.max(0)) / 2
+    box = np.random.default_rng(7).uniform(mid - 1.05 * c_ext,
+                                           mid + 1.05 * c_ext, (n_sel, 3))
+    rms_box, _ = rms_to_levelset(P, coarse_g, box, 0.3)
+    check(rms < rms_box, f"sugar_rms_to_levelset {rms:.4f} is not below the "
+          f"foreground box's uniform points' {rms_box:.4f}")
+    st = {k: dict(v) for k, v in clock.stages.items()}
+    coarse_t = {True: [], False: []}
+    for reg, _, dt, _ in seen["coarse"]:
+        coarse_t[reg].append(dt)
+    for name in ("poisson solve", "marching tets"):
+        st["poisson prune"]["s"] -= st[name]["s"]
+    for name in ("level points", "outliers", "poisson solve",
+                 "marching tets", "poisson prune", "background grid",
+                 "decimation", "prune", "colours"):
+        st["extraction (the rest)"]["s"] -= st[name]["s"]
+    st["coarse (the rest)"]["s"] -= sum(coarse_t[True]) + sum(coarse_t[False])
+    kept = f"{n_active} of {N_SPLATS} Gaussians past the prune"
+    print(f"SuGaR pipeline: the CLI's files written; 3DGS {n_train} steps, "
+          f"coarse {n_coarse} ({n_reg} regularized, {kept}); losses "
+          f"{losses[0]:.5f} .. {losses[-1]:.5f}; mesh {len(mesh.vertices)} "
+          f"vertices, {len(mesh.faces)} faces; sugar_rms_to_levelset "
+          f"{rms:.4f} over {n_sel} vertices (uniform points in the "
+          f"foreground box: {rms_box:.4f}); metrics PSNR "
+          f"{result['metrics']['psnr']:.3f} dB, SSIM "
+          f"{result['metrics']['ssim']:.4f}; launches {launches} for {steps} "
+          f"training passes and {views} forward renders")
+    print(f"[{card}] SuGaR CLI at {WIDTH}x{HEIGHT} ({kept}): {wall:.1f} s "
+          f"wall, peak device memory {peak / 2**30:.2f} GiB; stages (wall s, "
+          "each without the stages inside it): " + ", ".join(
+              f"{k} {v['s']:.3f}" for k, v in st.items())
+          + f"; coarse plain step median "
+          f"{statistics.median(coarse_t[False]) * 1000.0:.1f} ms, regularized "
+          f"{statistics.median(coarse_t[True]) * 1000.0:.1f} ms")
+    return dict(result=result, launches=launches, last=seen["last"],
+                kept=kept)
+
+
+def sugar_refine(P, card: str, run: dict, rng) -> tuple[dict, dict]:
+    """``refine_train`` on the CLI's bound Gaussians against the 8 views
+    (its launches checked), then kernels 1-3, the preprocess backward and
+    kernel 4 on the refined Gaussians against their plain versions at the
+    refinement's budget."""
+    from autovfx_tpu_torch.core.cameras import index_camera, num_cameras
+    from autovfx_tpu_torch.sugar import refine as R
+    from autovfx_tpu_torch.sugar import refine_train as RT
+
+    ops = P.ops
+    result = run["result"]
+    bound, images, cams = result["bound"], result["images"], result["cams"]
+    need = lambda x, c: int(ops.binning.required_budget(
+        ops.preprocess_cuda.preprocess(x, c, tile=SUGAR_TILE)))
+    with torch.no_grad():
+        fine = R.realize(bound)
+    worst = max(need(fine, index_camera(cams, i))
+                for i in range(num_cameras(cams)))
+    del fine
+    budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK * 1.25)
+    rcfg = RT.RefineConfig(iterations=REFINE_STEPS, raster=P.RasterConfig(
+        dup_budget=budget, tile=SUGAR_TILE))
+    sync()
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    refined, hist = RT.refine_train(bound, cams, images, rcfg, log_every=1)
+    sync()
+    refine_s = time.perf_counter() - t0
+    launches = counters(ops)
+    check_launches(launches, {k: REFINE_STEPS for k in TRAIN_LIKE},
+                   f"{REFINE_STEPS} refine steps")
+    for f in R.PARAM_KEYS:
+        check(bool(torch.isfinite(getattr(refined, f)).all()),
+              f"refined {f} not finite")
+    check(all(np.isfinite(h["loss"]) for h in hist), "a refine loss")
+    print(f"[{card}] refine_train: {REFINE_STEPS} steps on "
+          f"{bound.num_gaussians} bound Gaussians ({run['kept']}) in "
+          f"{refine_s:.2f} s ({refine_s * 1000.0 / REFINE_STEPS:.1f} ms a "
+          f"step, budget {budget}), PSNR {hist[0]['psnr']:.3f} -> "
+          f"{hist[-1]['psnr']:.3f} dB; launches {launches}")
+
+    with torch.no_grad():
+        fine = R.realize(refined)
+    cam = index_camera(cams, 0)
+    what = f"refined Gaussians ({fine.capacity}) on ring view 0"
+    err = check_view_kernels(P, fine, cam, budget, SUGAR_TILE, rng, what)
+    e1, r1 = check_preprocess_bwd(P, fine, cam, SUGAR_TILE, rng, what)
+    tx, ty = ops.projection.num_tiles(cam.width, cam.height, SUGAR_TILE)
+    tiles = torch.from_numpy(rng.choice(tx * ty, CHECK_TILES,
+                                        replace=False)).to(DEVICE)
+    e2, r2, zeroed, n_px = check_blend_bwd(P, fine, cam, SUGAR_TILE, rng,
+                                           what, tiles=tiles)
+    sync()
+    err.update(preprocess_bwd=e1, blend_bwd=e2)
+    print(f"check {what}: preprocess max err {err['preprocess']:.3g}, "
+          f"duplicates bit-equal, blend max color err {err['blend_fwd']:.3g}"
+          f"; preprocess_bwd {e1:.3g} ({r1:.3g} of the largest), blend_bwd "
+          f"{e2:.3g} ({r2:.3g}; {CHECK_TILES} tiles, {zeroed} of {n_px} "
+          "pixels zeroed): ok")
+    return launches, err
+
+
+def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
+    """The port's reconstruction CLI, ``train_gaussians.main``, on a
+    COLMAP scene of the bench's garden-like scene at the reference's
+    widths (``SUGAR_CLI``; ``sugar_cli``); then ``refine_train`` on the
+    bound Gaussians (``sugar_refine``) and the TSDF and density-grid
+    extractions, which the CLI does not run, with no render of any of
+    them overflowing; then a regularized step's device time by
+    operation, and the kernels against their plain versions on that
+    step's own inputs and on a ring view of the coarse Gaussians."""
+    from autovfx_tpu_torch.sugar import coarse_train as CT
+    from autovfx_tpu_torch.sugar import extract_mesh as EM
+    from autovfx_tpu_torch.sugar import levelset as LS
+    from autovfx_tpu_torch.sugar import sdf_fusion as SF
+
+    ops = P.ops
+    rng = np.random.default_rng(16)
+    tmp = tempfile.TemporaryDirectory()
+    budget = sugar_scene_files(P, tmp.name)
+    with overflow_watch(ops) as overflow:
+        run = sugar_cli(P, card, tmp.name, budget)
+        refine_launches, err = sugar_refine(P, card, run, rng)
+        # the extractions the CLI does not run, on the coarse Gaussians
+        coarse_g = run["result"]["coarse_state"].gaussians
+        cams = run["result"]["cams"]
+        config = P.RasterConfig(dup_budget=budget, tile=SUGAR_TILE)
+        side = {}
+        for method in ("tsdf", "density_grid"):
+            clock = StageClock()
+            saved = counted_renders(clock, (LS, SF))
+            sync()
+            reset_counters(ops)
+            t0 = time.perf_counter()
+            try:
+                m = EM.extract_mesh_from_gaussians(
+                    coarse_g, cams, config=config, method=method,
+                    fg_resolution=SUGAR_SIDE_RES,
+                    target_vertices=SUGAR_TARGET_VERTICES)
+                sync()
+            finally:
+                for owner, attr, fn in saved:
+                    setattr(owner, attr, fn)
+            side[method] = counters(ops)
+            n = clock.renders
+            check_launches(side[method], {"preprocess": n,
+                                          "duplicate_with_keys": n,
+                                          "blend_fwd": n}, f"{method} mesh")
+            check(len(m.vertices) > 0 and len(m.faces) > 0
+                  and np.isfinite(m.vertices).all(),
+                  f"{method} mesh: {len(m.vertices)} vertices")
+            print(f"[{card}] extract_mesh_from_gaussians(method={method!r}) "
+                  f"at {SUGAR_SIDE_RES} ({run['kept']}): {len(m.vertices)} "
+                  f"vertices, {len(m.faces)} faces in "
+                  f"{time.perf_counter() - t0:.2f} s; launches {side[method]} "
+                  f"for {n} renders")
+        check(not bool(overflow["any"]), "SuGaR pipeline: a render of the "
+              "CLI, the refinement or the side extractions overflowed")
+
+    # a regularized step: kernel 4 and the preprocess backward on the
+    # inputs it gives them (the first launch of the run), then its device
+    # time, busy, idle and operations
+    cam, image, cfg, gen = run["last"]
+    state = run["result"]["coarse_state"]
+    step = lambda: CT.coarse_step(state, cam, image, cfg, True, gen)
+    what = (f"a regularized coarse step ({state.gaussians.capacity} slots, "
+            f"{run['kept']})")
+    for k, e in check_step_backward(P, capture_backward(P, step), rng,
+                                    what).items():
+        err[k] = max(err[k], e)
+    step_ms = cuda_ms(step, 5)
+    records = profiled(step, 3)
+    busy = sum(e.duration_ns() for e in records) / 1e6 / 3
+    ops_ms = {}
+    for e in records:
+        ops_ms[e.name()] = (ops_ms.get(e.name(), 0.0)
+                            + e.duration_ns() / 1e6 / 3)
+    top = sorted(ops_ms.items(), key=lambda kv: -kv[1])[:12]
+    print(f"[{card}] a regularized coarse step ({run['kept']}): {step_ms:.1f} "
+          f"ms (CUDA events, median of 5), device busy {busy:.1f} ms "
+          f"(profiler, mean of 3), idle share {1.0 - busy / step_ms:.3f}, "
+          f"{len(records) // 3} device records; top device operations (ms "
+          "a step): " + "; ".join(f"{name[:90]} {ms:.2f}" for name, ms in top))
+
+    # kernels 1-3 on a ring view of the coarse Gaussians at the CLI's
+    # budget
+    what = f"coarse Gaussians ({run['kept']}) on ring view {cam.width}x" \
+           f"{cam.height}"
+    view_err = check_view_kernels(P, state.gaussians, cam, budget, SUGAR_TILE,
+                                  rng, what)
+    print(f"check {what}: preprocess max err {view_err['preprocess']:.3g}, "
+          f"duplicates bit-equal, blend max color err "
+          f"{view_err['blend_fwd']:.3g} on {CHECK_TILES} tiles: ok")
+    for k, e in view_err.items():
+        err[k] = max(err[k], e)
+    total = {k: run["launches"][k] + refine_launches[k]
+             + sum(side[m][k] for m in side) for k in run["launches"]}
+    total["blend_fwd"] += total.pop("blend_fwd_train")
+    del state, run
+    tmp.cleanup()
+    return total, err
+
+
+def shell_gaussians(device):
+    """``tests/test_sugar.py``'s 600-splat sphere shell (numpy, seed 0),
+    with uneven scales and rotations (at isotropic scales a rotation's
+    gradient is rounding noise, which Adam's first normalized step turns
+    into a full step of either sign) and opacities below the 0.99 clamp."""
+    from autovfx_tpu_torch.core.gaussians import Gaussians
+
+    rng = np.random.default_rng(0)
+    n = SHELL_SPLATS
+    d = rng.standard_normal((n, 3))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return Gaussians(
+        xyz=t(d / np.linalg.norm(d, axis=1, keepdims=True)),
+        sh_dc=t(rng.standard_normal((n, 3))),
+        sh_rest=t(0.05 * rng.standard_normal((n, 15, 3))),
+        log_scales=t(np.log(0.06) + 0.3 * rng.standard_normal((n, 3))),
+        quats=t(rng.standard_normal((n, 4))),
+        opacity_logit=t(np.clip(rng.normal(0.5, 1.5, n), -4.0, 4.0)),
+        active=torch.ones(n, dtype=torch.bool, device=device))
+
+
+def shell_camera(device, angle: float = 0.0):
+    """A 64×48 camera 3 m from the shell's centre, at ``angle`` about z."""
+    from autovfx_tpu_torch.core.cameras import look_at_camera
+
+    return look_at_camera(
+        [3.0 * np.cos(angle), 3.0 * np.sin(angle), 0.5], [0, 0, 0], [0, 0, 1],
+        fx=60.0, fy=60.0, width=SHELL_W, height=SHELL_H, device=device)
+
+
+def sugar_shell_case(P, device):
+    """One plain and one regularized coarse step on the 600-splat shell
+    toward a render of its colours reversed (the sample draws made on the
+    CPU, so every device takes the same), and the level set of the
+    camera after them: (state, (plain loss, regularized loss), level
+    set)."""
+    import dataclasses as dc
+
+    from autovfx_tpu_torch.sugar import coarse_train as CT
+    from autovfx_tpu_torch.sugar import density as D
+    from autovfx_tpu_torch.sugar import levelset as LS
+    from autovfx_tpu_torch.train import trainer
+
+    config = P.RasterConfig(dup_budget=1 << 14)
+    g_cpu = shell_gaussians("cpu")
+    with torch.no_grad():
+        target = P.rasterize(dc.replace(g_cpu, sh_dc=g_cpu.sh_dc.flip(0)),
+                             shell_camera("cpu"), config=config).color
+    cfg = CT.SugarConfig(
+        base=trainer.TrainConfig(raster=config, spatial_lr_scale=2.0,
+                                 densify_from_iter=10**9),
+        regularize_from=2, n_sdf_samples=SHELL_SAMPLES)
+    draws = D.draw_samples(g_cpu, torch.Generator().manual_seed(0),
+                           SHELL_SAMPLES)
+    state = trainer.init_state(shell_gaussians(device))
+    c, img = shell_camera(device), target.to(device)
+    state, a1 = CT.coarse_step(state, c, img, cfg, False, None)
+    state, a2 = CT.coarse_step(state, c, img, cfg, True, None,
+                               draws=tuple(x.to(device) for x in draws))
+    ls = LS.level_surface_from_camera(state.gaussians, c, config=config)
+    return state, (a1.loss.item(), a2.loss.item()), ls
+
+
+def sugar_card_against_cpu(P) -> None:
+    """SuGaR's small cases on the card and on the CPU: one plain and one
+    regularized coarse step (the same draws), the level set of a camera
+    and the Poisson mesh of its cloud."""
+    from scipy.spatial import cKDTree
+
+    from autovfx_tpu_torch.core.cameras import stack_cameras
+    from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS
+    from autovfx_tpu_torch.sugar import extract_mesh as EM
+    from autovfx_tpu_torch.sugar import poisson as PO
+
+    (s_c, (l1_c, l2_c), ls_c), (s_g, (l1_g, l2_g), ls_g) = (
+        sugar_shell_case(P, dev) for dev in ("cpu", DEVICE))
+    for what, got, want in (("plain", l1_g, l1_c), ("regularized", l2_g, l2_c)):
+        check(abs(got - want) <= LOSS_RTOL * abs(want),
+              f"card vs CPU: the {what} coarse step's loss {got} vs {want}")
+    worst = {}
+    for f in PARAM_FIELDS:
+        want = getattr(s_c.gaussians, f)
+        err = (getattr(s_g.gaussians, f).cpu() - want).abs().max().item()
+        worst[f] = err / max(want.abs().max().item(), 1e-12)
+        check(worst[f] <= STATE_TOL, f"card vs CPU: {f} after two coarse "
+              f"steps off by {worst[f]:.3g} of its largest")
+    v_c, v_g = ls_c.valid.numpy(), ls_g.valid.cpu().numpy()
+    agree = float((v_c == v_g).mean())
+    both = v_c & v_g
+    p_err = float(np.abs(ls_g.points.cpu().numpy()[both]
+                         - ls_c.points.numpy()[both]).max())
+    check(agree >= LEVEL_AGREE and both.sum() > 100
+          and p_err <= LEVEL_POINT_TOL,
+          f"card vs CPU level set: masks agree on {agree:.4f}, points "
+          f"{p_err:.3g} apart on {both.sum()} rays")
+    # the Poisson mesh of the CPU's cloud of two views, solved on both
+    cams2 = stack_cameras([shell_camera("cpu"), shell_camera("cpu", np.pi)])
+    pts, nrm = EM.extract_level_points(
+        s_c.gaussians, cams2, config=P.RasterConfig(dup_budget=1 << 14),
+        every_nth=1)
+    lo, hi = np.percentile(pts, 1, axis=0), np.percentile(pts, 99, axis=0)
+    meshes = {dev: PO.poisson_reconstruct(pts, -nrm, lo, hi,
+                                          resolution=SHELL_POISSON_RES,
+                                          device=dev)
+              for dev in ("cpu", DEVICE)}
+    (vc, fc), (vg, fg) = meshes["cpu"], meshes[DEVICE]
+    voxel = float(np.linalg.norm((hi - lo) * 1.3 / (SHELL_POISSON_RES - 1)))
+    far = float(cKDTree(vc).query(vg)[0].max()) if len(vg) else np.inf
+    check(len(vc) > 100 and abs(len(vg) - len(vc)) <= 0.01 * len(vc)
+          and far <= voxel,
+          f"card vs CPU Poisson: {len(vg)} vs {len(vc)} vertices, the "
+          f"farthest card vertex {far:.3g} from the CPU mesh (voxel diagonal "
+          f"{voxel:.3g})")
+    print(f"SuGaR card vs CPU (the {SHELL_SPLATS}-splat shell at "
+          f"{SHELL_W}x{SHELL_H}): coarse losses {l1_g:.7f}/{l2_g:.7f} vs "
+          f"{l1_c:.7f}/{l2_c:.7f}; fields after Adam off by at most "
+          + ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
+          + f" of their largest; level set masks agree on {agree:.4f}, points"
+          f" within {p_err:.2g}; Poisson {len(vg)} vs {len(vc)} vertices, the"
+          f" farthest {far:.3g} (voxel diagonal {voxel:.3g}): ok")
+
+
 def physics_point(P, card: str, w, inp, config) -> None:
     """Physics substeps and the whole replay (simulate + render_clip) of
     the edited frame's clip.  Run last: the profiler's sessions after
@@ -3484,9 +4268,11 @@ def main() -> None:
     pano_launches, pano_err = panorama_point(P, card, edit["g"])
     program_launches, program_err = edit_program_point(P, card)
     removal_launches, removal_err = removal_program_point(P, card)
+    sugar_launches, sugar_err = sugar_pipeline_point(P, card)
+    sugar_card_against_cpu(P)
     physics_point(P, card, edit["w"], edit["inp"], edit["config"])
     for part in (train_err, edit_err, fx_err, pano_err, program_err,
-                 removal_err):
+                 removal_err, sugar_err):
         for k, e in part.items():
             err[k] = max(err.get(k, 0.0), e)
     ms.update(train_ms)
@@ -3503,7 +4289,8 @@ def main() -> None:
                    "effects_frame": fx_launches[k],
                    "panorama": pano_launches[k],
                    "edit_program": program_launches[k],
-                   "removal_program": removal_launches[k]}
+                   "removal_program": removal_launches[k],
+                   "sugar_pipeline": sugar_launches[k]}
         main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],

@@ -9,8 +9,9 @@ n_contrib the plain blend's last blended duplicate), ``render``'s normal
 pass, and the wrappers' refusals; and for the training path, the
 backward kernels under those options, the differentiable ``rasterize``
 and one ``train_step`` against the CPU path; for object removal, LaMa
-and ``inpaint_loss``'s gradients against the CPU.  The tolerances are
-``chip_smoke.py``'s.
+and ``inpaint_loss``'s gradients against the CPU; for SuGaR, a plain and
+a regularized coarse step and the level set against the CPU.  The
+tolerances are ``chip_smoke.py``'s.
 
 Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere.  It imports neither
 JAX nor the JAX package, so it runs on a machine without them, from the
@@ -894,3 +895,29 @@ def test_inpaint_loss_gradients_match_cpu(scene, use_lpips):
                                                  + 1e-12)
         assert err < 1e-3, (f, err)
     assert _flags() == before
+
+
+def test_sugar_coarse_steps_match_cpu(dev):
+    """Losses at rtol 1e-5, every field after Adam within 5e-4 of its
+    largest (``chip_smoke.sugar_card_against_cpu``'s bounds)."""
+    s_g, l_g, _ = cs.sugar_shell_case(P, "cuda")
+    s_c, l_c, _ = cs.sugar_shell_case(P, "cpu")
+    for got, want in zip(l_g, l_c):
+        assert abs(got - want) <= cs.LOSS_RTOL * abs(want)
+    for f in PARAM_FIELDS:
+        want = getattr(s_c.gaussians, f)
+        err = (getattr(s_g.gaussians, f).cpu() - want).abs().max().item()
+        assert err <= cs.STATE_TOL * want.abs().max().item(), f
+
+
+def test_sugar_level_set_matches_cpu(dev):
+    """Valid masks agree on ≥ 99.5 % of the rays, points within 1e-4 on
+    the rays valid in both."""
+    _, _, ls_g = cs.sugar_shell_case(P, "cuda")
+    _, _, ls_c = cs.sugar_shell_case(P, "cpu")
+    v_g, v_c = ls_g.valid.cpu().numpy(), ls_c.valid.numpy()
+    assert (v_g == v_c).mean() >= cs.LEVEL_AGREE
+    both = v_g & v_c
+    assert both.sum() > 100
+    err = np.abs(ls_g.points.cpu().numpy()[both] - ls_c.points.numpy()[both])
+    assert float(err.max()) <= cs.LEVEL_POINT_TOL

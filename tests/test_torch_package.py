@@ -232,9 +232,11 @@ def _entry_points():
     """The loaders and constructors that put tensors on a device."""
     from autovfx_tpu_torch import convert
     from autovfx_tpu_torch.core import cameras, ply_io
+    from autovfx_tpu_torch.dataset import colmap
     from autovfx_tpu_torch.perception import lama
     from autovfx_tpu_torch.physics import shapes, world
     from autovfx_tpu_torch.render import clip, emitter, ibl, meshsplat, preview
+    from autovfx_tpu_torch.sugar import extract_mesh, poisson, refine
     from autovfx_tpu_torch.train import (
         checkpoint, densify, init_points, inpaint_retrain,
     )
@@ -274,6 +276,11 @@ def _entry_points():
         "make_garden_like": synthetic.make_garden_like,
         "garden_camera": synthetic.garden_camera,
         "DensifyStats.zero": densify.DensifyStats.zero,
+        "colmap_to_cameras": colmap.colmap_to_cameras,
+        "bind_to_mesh": refine.bind_to_mesh,
+        "convert.bound_gaussians": convert.bound_gaussians,
+        "poisson_reconstruct": poisson.poisson_reconstruct,
+        "remove_outliers": extract_mesh.remove_outliers,
     }
 
 
@@ -288,6 +295,8 @@ def test_entry_points_default_to_the_card():
 def _calls(tmp_path):
     """Each entry point's call with no device named, on inputs made on
     the CPU."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -334,7 +343,15 @@ def _calls(tmp_path):
             "radius": np.float32(0.1)}
     hull = type("Hull", (), {"planes": np.zeros((1, 8, 4), np.float32),
                              "plane_mask": np.ones((1, 8), bool)})()
-    clip_arrays = {"surf_points": corners, "light_dirs": corners}
+    from autovfx_tpu_torch.render import clip
+
+    clip_args = (g, cam_batch, [{}], [surf], np.zeros((2, 1, 3)),
+                 np.tile(np.eye(3), (2, 1, 1, 1)), hull, env)
+    # every array of a clip's inputs, as another package would pass them
+    clip_cpu = clip.build_clip_inputs(*clip_args, num_lights=2, device="cpu")
+    clip_arrays = {f.name: getattr(clip_cpu, f.name).numpy()
+                   for f in dataclasses.fields(clip_cpu)
+                   if torch.is_tensor(getattr(clip_cpu, f.name))}
     images = np.zeros((2, 16, 24, 3), np.float32)
     from autovfx_tpu_torch.perception import lama
     from autovfx_tpu_torch.utils import png
@@ -352,6 +369,19 @@ def _calls(tmp_path):
         "Hparams", (), {"dup_budget": 1 << 12})()})()
     cube = str(tmp_path / "cube.obj")
     mesh_io.save_obj(cube, mesh_io.Mesh(corners, tri))
+    import chip_smoke
+    from autovfx_tpu_torch.sugar import refine
+
+    sparse = str(tmp_path / "sparse")
+    chip_smoke.write_colmap_model(sparse, [cam, cam], corners,
+                                  np.zeros((8, 3), np.uint8))
+    bound = refine.bind_to_mesh(mesh_io.Mesh(corners, tri), device="cpu")
+    bound_arrays = {f.name: (getattr(bound, f.name).numpy()
+                             if f.name != "thickness_ratio"
+                             else bound.thickness_ratio)
+                    for f in dataclasses.fields(bound)}
+    cloud = np.random.default_rng(0).standard_normal((40, 3)).astype(
+        np.float32)
     return {
         "load_lama_params": lambda: fns["load_lama_params"](lama_ckpt).out_w,
         "convert_torch_state_dict": lambda: fns["convert_torch_state_dict"](
@@ -374,9 +404,7 @@ def _calls(tmp_path):
         "build_hulls": lambda: fns["build_hulls"]([corners])[0],
         "build_mesh_grid": lambda: fns["build_mesh_grid"](corners, tri)[:4],
         "build_clip_inputs": lambda: fns["build_clip_inputs"](
-            g, cam_batch, [{}], [surf], np.zeros((2, 1, 3)),
-            np.tile(np.eye(3), (2, 1, 1, 1)), hull, env,
-            num_lights=2).light_dirs,
+            *clip_args, num_lights=2).light_dirs,
         "sample_mesh_surfels": lambda: list(fns["sample_mesh_surfels"](
             corners, tri, 10).values()),
         "prefilter_envmap_ggx": lambda: fns["prefilter_envmap_ggx"](
@@ -409,6 +437,14 @@ def _calls(tmp_path):
         "make_garden_like": lambda: fns["make_garden_like"](30),
         "garden_camera": lambda: fns["garden_camera"](24, 16),
         "DensifyStats.zero": lambda: fns["DensifyStats.zero"](20),
+        "colmap_to_cameras": lambda: fns["colmap_to_cameras"](sparse),
+        "bind_to_mesh": lambda: fns["bind_to_mesh"](
+            mesh_io.Mesh(corners, tri)),
+        "convert.bound_gaussians": lambda: fns["convert.bound_gaussians"](
+            bound_arrays),
+        "poisson_reconstruct": lambda: fns["poisson_reconstruct"](
+            cloud, cloud, cloud.min(0), cloud.max(0), resolution=8),
+        "remove_outliers": lambda: fns["remove_outliers"](cloud, cloud),
     }
 
 
@@ -417,7 +453,8 @@ def _calls(tmp_path):
 HOST_RESULTS = ("prefilter_envmap_ggx", "build_init_points",
                 "ray_mesh_init_points", "inpaint_with_params",
                 "training_3DGS_for_inpainting", "render_asset_previews",
-                "render_trajectory")
+                "render_trajectory", "poisson_reconstruct",
+                "remove_outliers")
 
 
 def _tensors(x):
@@ -479,3 +516,20 @@ def test_scene_and_cli_default_to_the_card(tmp_path):
         SR.SceneRepresentation(SR.SceneParams(cache_dir=str(tmp_path)))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         edit_scene.run_scene_editing(opts, opts.edit_text)
+
+
+def test_reconstruction_cli_defaults_to_the_card(tmp_path):
+    """``python -m autovfx_tpu_torch.train_gaussians``'s ``--device``
+    defaults to the card; without one, the CLI raises an error that
+    names the remedy before it reads the scene."""
+    import torch
+
+    from autovfx_tpu_torch import train_gaussians
+
+    argv = ["--source_path", str(tmp_path / "scene"), "--model_path",
+            str(tmp_path / "out")]
+    assert train_gaussians.get_args(argv).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_gaussians.main(argv)

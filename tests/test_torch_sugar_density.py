@@ -1,0 +1,173 @@
+"""SuGaR's density field and regularization in the PyTorch port vs the JAX
+package, on the CPU.
+
+The scene is ``tests/test_sugar.py``'s 600-splat sphere shell with
+uneven scales, opacities and rotations (``torch_sugar_common``); random
+draws are JAX's, fed to the port's explicit-draw arguments.  Budgets:
+
+- values (density, β in three modes, SDF, gradient, samples, losses):
+  1e-5 relative to the largest magnitude;
+- gradients of the four regularization terms in every parameter field
+  (and in the rendered depth and alpha maps) against ``jax.grad``: the
+  error over the field's largest magnitude below 5e-4.
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from autovfx_tpu.sugar import density as JD
+from autovfx_tpu.sugar import regularization as JREG
+from autovfx_tpu_torch.sugar import density as D
+from autovfx_tpu_torch.sugar import regularization as REG
+from torch_sugar_common import (
+    GRAD_TOL,
+    close,
+    jax_draws,
+    jax_gaussians,
+    jax_render,
+    port_camera,
+    port_gaussians,
+    ring,
+    shell_arrays,
+)
+
+N_SAMPLES = 4096
+FIELDS = ("xyz", "log_scales", "quats", "opacity_logit")
+
+
+@pytest.fixture(scope="module")
+def shell():
+    a = shell_arrays(uneven=True)
+    g = jax_gaussians(a)
+    cam = ring(1)[0]
+    out = jax_render(g, cam)
+    nbrs = np.array(JD.reset_neighbors(g))
+    rng = np.random.default_rng(0)
+    pts = np.asarray(g.xyz)[nbrs[:, 0]] + 0.05 * rng.standard_normal(
+        (g.capacity, 3)).astype(np.float32)
+    return dict(g=g, cam=cam, depth=out.depth, alpha=out.alpha, nbrs=nbrs,
+                pts=pts.astype(np.float32), pg=port_gaussians(a),
+                pcam=port_camera(cam))
+
+
+def test_inverse_covariance_and_neighbours(shell):
+    close(D.gaussian_inverse_covariance(shell["pg"]),
+          JD.gaussian_inverse_covariance(shell["g"]), what="inverse cov")
+    np.testing.assert_array_equal(D.reset_neighbors(shell["pg"]).numpy(),
+                                  shell["nbrs"])
+
+
+def test_density_sdf_and_gradient(shell):
+    g, pg = shell["g"], shell["pg"]
+    pts, nbrs = shell["pts"], shell["nbrs"]
+    tp, tn = torch.as_tensor(pts), torch.as_tensor(nbrs)
+    want = JD.compute_density(jnp.asarray(pts), jnp.asarray(nbrs), g)
+    got = D.compute_density(tp, tn, pg, chunk=128)  # several chunks
+    close(got, want, what="density")
+    beta = JD.compute_beta(jnp.asarray(pts), jnp.asarray(nbrs), g)
+    close(D.density_to_sdf(got, D.compute_beta(tp, tn, pg)),
+          JD.density_to_sdf(want, beta), what="sdf")
+    close(D.density_gradient(tp, tn, pg, chunk=100),
+          JD.density_gradient(jnp.asarray(pts), jnp.asarray(nbrs), g),
+          what="gradient")
+
+
+@pytest.mark.parametrize("mode", ["average", "weighted_average", "learnable"])
+def test_beta_modes(shell, mode):
+    pts, nbrs = shell["pts"], shell["nbrs"]
+    kw = {"log_beta": -3.0} if mode == "learnable" else {}
+    want = JD.compute_beta(jnp.asarray(pts), jnp.asarray(nbrs), shell["g"],
+                           mode=mode, **{k: jnp.float32(v) for k, v in kw.items()})
+    got = D.compute_beta(torch.as_tensor(pts), torch.as_tensor(nbrs),
+                         shell["pg"], mode=mode,
+                         **{k: torch.tensor(v) for k, v in kw.items()})
+    close(got, want, what=mode)
+
+
+def test_sampling_with_jax_draws(shell):
+    g, pg = shell["g"], shell["pg"]
+    key = jax.random.PRNGKey(7)
+    mask = jnp.asarray(np.arange(g.capacity) % 3 != 0)
+    want, src = JD.sample_points_in_gaussians(g, key, N_SAMPLES, mask=mask)
+    draws = jax_draws(g, key, N_SAMPLES, mask=mask)
+    got, got_src = D.sample_points_in_gaussians(pg, None, N_SAMPLES,
+                                                draws=draws)
+    np.testing.assert_array_equal(got_src.numpy(), np.asarray(src))
+    close(got, want, what="samples")
+    # the port's own draws follow the mask
+    idx, eps = D.draw_samples(pg, torch.Generator().manual_seed(0),
+                              N_SAMPLES, mask=torch.as_tensor(np.asarray(mask)))
+    assert bool((idx % 3 != 0).all()) and eps.shape == (N_SAMPLES, 3)
+
+
+def _term(REGm, name, samples, g, cam, depth, alpha):
+    if name == "entropy":
+        return REGm.opacity_entropy_loss(g)
+    if name == "normal":
+        return REGm.normal_consistency_loss(g, samples)
+    fn = (REGm.density_regularization_loss if name == "density"
+          else REGm.sdf_regularization_loss)
+    return fn(g, samples, cam, depth, alpha)
+
+
+@pytest.fixture(scope="module")
+def jax_terms(shell):
+    """Each term's value and its gradients in the fields and the maps,
+    with the samples drawn inside the loss (as a coarse step does)."""
+    g, cam = shell["g"], shell["cam"]
+    key = jax.random.PRNGKey(3)
+    out = {}
+    for name in ("entropy", "density", "sdf", "normal"):
+        def loss(params, depth, alpha, name=name):
+            gg = g.replace(**params)
+            samples = JREG.sample_sdf_points(gg, key, N_SAMPLES)
+            return _term(JREG, name, samples, gg, cam, depth, alpha)
+
+        params = {f: getattr(g, f) for f in FIELDS}
+        val, grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2)))(
+            params, shell["depth"], shell["alpha"])
+        out[name] = (float(val), grads)
+    return out, jax_draws(g, key, N_SAMPLES)
+
+
+@pytest.mark.parametrize("name", ["entropy", "density", "sdf", "normal"])
+def test_regularization_terms_and_gradients(shell, jax_terms, name):
+    want, draws = jax_terms
+    val_want, (g_want, d_want, a_want) = want[name]
+    pg = shell["pg"]
+    params = {f: getattr(pg, f).clone().requires_grad_(True) for f in FIELDS}
+    depth = torch.as_tensor(np.asarray(shell["depth"])).requires_grad_(True)
+    alpha = torch.as_tensor(np.asarray(shell["alpha"])).requires_grad_(True)
+    gg = dataclasses.replace(pg, **params)
+    samples = REG.sample_sdf_points(gg, None, N_SAMPLES, draws=draws)
+    val = _term(REG, name, samples, gg, shell["pcam"], depth, alpha)
+    close(val, val_want, what=f"{name} value")
+    inputs = [*params.values(), depth, alpha]
+    grads = torch.autograd.grad(val, inputs, allow_unused=True)
+    wants = [g_want[f] for f in FIELDS] + [d_want, a_want]
+    for f, got, w in zip(FIELDS + ("depth", "alpha"), grads, wants):
+        if got is None:
+            assert float(np.abs(np.asarray(w)).max()) == 0.0, f
+            continue
+        close(got, w, rtol=GRAD_TOL, what=f"{name} d/d{f}")
+    if name == "density":  # the maps' cotangents are not zero
+        assert float(np.abs(np.asarray(d_want)).max()) > 0
+        assert float(np.abs(np.asarray(a_want)).max()) > 0
+
+
+def test_surface_distance(shell):
+    pts = shell["pts"]
+    want, wv = JREG.estimate_surface_distance(
+        jnp.asarray(pts), shell["cam"], shell["depth"], shell["alpha"])
+    got, gv = REG.estimate_surface_distance(
+        torch.as_tensor(pts), shell["pcam"],
+        torch.as_tensor(np.asarray(shell["depth"])),
+        torch.as_tensor(np.asarray(shell["alpha"])))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    m = np.asarray(wv)
+    assert m.sum() > 50
+    close(got.numpy()[m], np.asarray(want)[m], what="distance")
