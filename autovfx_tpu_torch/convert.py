@@ -5,7 +5,8 @@ Takes plain arrays (``np.asarray`` of each field of another package's
 returns this package's dataclasses on a chosen device; ``train_state``
 takes a whole training state in the arrays of a checkpoint,
 ``clip_inputs`` an edited clip's inputs (with its smoke volume and melt
-tracers), ``bound_gaussians`` refined SuGaR's mesh-bound Gaussians,
+tracers), ``slabs`` one rank's piece of per-device stacked Gaussians,
+``bound_gaussians`` refined SuGaR's mesh-bound Gaussians,
 ``lpips_params`` the LPIPS network's weights and
 ``lama_params_from_jax`` the LaMa generator's.  Only
 arrays cross the boundary, so nothing here imports another framework.
@@ -52,6 +53,16 @@ def gaussians(
     out["active"] = torch.tensor(np.asarray(a["active"], dtype=bool),
                                  device=device)
     return Gaussians(**out)
+
+
+def slabs(arrays: Mapping, rank: int, *, device=devices.DEFAULT) -> Gaussians:
+    """Rank ``rank``'s Gaussians from per-device stacked arrays named like
+    the fields, each (D, cap, ...): the JAX package's depth slabs
+    (``shard_gaussians``, ``shard_gaussians_compact``,
+    ``distributed_shard_compact``) or a ``round_robin_store``."""
+    a = _collect(Gaussians, arrays, {})
+    return gaussians({f: np.asarray(a[f])[rank] for f in GAUSSIAN_FIELDS},
+                     device=device)
 
 
 def camera(arrays: Optional[Mapping] = None, *, device=devices.DEFAULT,

@@ -213,28 +213,33 @@ def apply_adam(
     return g, dataclasses.replace(adam, count=count)
 
 
+def loss_and_grads(g: Gaussians, loss_fn):
+    """``loss_fn(g, mean2d_offset)`` -> (loss, (radii, overflow, psnr)),
+    its backward: (loss, (radii, overflow, psnr), the parameter
+    gradients by field, the screen-position gradient)."""
+    with torch.enable_grad():
+        params = {f: getattr(g, f).detach().requires_grad_(True)
+                  for f in PARAM_FIELDS}
+        offset = torch.zeros((g.capacity, 2), dtype=torch.float32,
+                             device=g.xyz.device, requires_grad=True)
+        loss, aux = loss_fn(dataclasses.replace(g, **params), offset)
+        grads = torch.autograd.grad(loss, [*params.values(), offset])
+    return loss.detach(), aux, dict(zip(PARAM_FIELDS, grads)), grads[-1]
+
+
 def step_with_loss(state: TrainState, cam: Camera, cfg: TrainConfig,
                    loss_fn) -> tuple[TrainState, StepAux]:
     """One step of ``loss_fn(g, mean2d_offset)`` -> (loss, (radii,
     overflow, psnr)): its backward, Adam and the densify stats.  The
     state's tensors are updated in place; the returned state holds
     them."""
-    g = state.gaussians
-    with torch.enable_grad():
-        params = {f: getattr(g, f).detach().requires_grad_(True)
-                  for f in PARAM_FIELDS}
-        offset = torch.zeros((g.capacity, 2), dtype=torch.float32,
-                             device=g.xyz.device, requires_grad=True)
-        loss, (radii, overflow, psnr) = loss_fn(
-            dataclasses.replace(g, **params), offset)
-        grads = torch.autograd.grad(loss, [*params.values(), offset])
-    g, adam = apply_adam(g, state.adam, dict(zip(PARAM_FIELDS, grads)),
-                         state.step, cfg)
-    stats = state.stats.update(grads[-1], radii, cam.width, cam.height)
+    loss, (radii, overflow, psnr), grads, offset_grad = loss_and_grads(
+        state.gaussians, loss_fn)
+    g, adam = apply_adam(state.gaussians, state.adam, grads, state.step, cfg)
+    stats = state.stats.update(offset_grad, radii, cam.width, cam.height)
     return (TrainState(gaussians=g, adam=adam, stats=stats,
                        step=state.step + 1),
-            StepAux(loss=loss.detach(), psnr=psnr.detach(),
-                    overflow=overflow))
+            StepAux(loss=loss, psnr=psnr.detach(), overflow=overflow))
 
 
 def train_step(

@@ -54,6 +54,7 @@ from autovfx_tpu_torch.train import trainer as T
 from autovfx_tpu_torch.train.init_points import build_init_points
 from autovfx_tpu_torch.utils import metrics as MET
 from autovfx_tpu_torch.utils import png
+from autovfx_tpu_torch.utils.png import read_rgb
 
 
 def get_args(argv=None):
@@ -87,29 +88,6 @@ def get_args(argv=None):
                    help="torch device the scene trains on (cpu: the "
                         "kernels' plain versions)")
     return p.parse_args(argv)
-
-
-def read_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 of an image file: PNG with ``utils/png``, another
-    format with PIL, which must then be importable."""
-    with open(path, "rb") as f:
-        is_png = f.read(8) == b"\x89PNG\r\n\x1a\n"
-    if is_png:
-        img = png.read_png(path)
-        if img.ndim == 2:
-            img = img[..., None]
-        # grey(+alpha) to RGB, alpha dropped, as PIL's convert("RGB")
-        return np.ascontiguousarray(
-            np.repeat(img[..., :1], 3, axis=2) if img.shape[2] <= 2
-            else img[..., :3])
-    try:
-        from PIL import Image
-    except ImportError as e:
-        fmt = os.path.splitext(path)[1] or "unknown"
-        raise RuntimeError(
-            f"{path}: a {fmt} image needs PIL, which is not installed; "
-            "only PNG is read without it") from e
-    return np.asarray(Image.open(path).convert("RGB"))
 
 
 def resize_rgb(img: np.ndarray, height: int, width: int) -> np.ndarray:

@@ -107,6 +107,39 @@ def get_params(weights_path: Optional[str] = None,
     return _cached_params(path, devices.resolve(device))
 
 
+def convert_torch_lpips(vgg_state: dict, lpips_state: dict) -> dict:
+    """The ``AUTOVFX_LPIPS_WEIGHTS`` ``.npz`` arrays from torchvision's
+    VGG16 and the ``lpips`` package's linear heads (numpy in, numpy out:
+    the state dicts' tensors already converted to arrays), as the JAX
+    package's ``convert_torch_lpips`` writes them.
+
+    ``vgg_state``: torchvision ``vgg16().state_dict()``, convolutions at
+    ``features.{0,2,5,7,10,12,14,17,19,21,24,26,28}.weight/bias`` (OIHW,
+    kept so).  ``lpips_state``: ``lpips.LPIPS(net='vgg').state_dict()``,
+    heads at ``lins.{k}.model.1.weight`` (or, in older releases,
+    ``lin{k}.model.1.weight``), 1×1 convolutions (1, C, 1, 1)."""
+    torch_conv_idx = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    out = {}
+    for k, ti in enumerate(torch_conv_idx):
+        w = np.asarray(vgg_state[f"features.{ti}.weight"], np.float32)
+        b = np.asarray(vgg_state[f"features.{ti}.bias"], np.float32)
+        if w.shape[2:] != (3, 3) or w.shape[0] != _VGG_PLAN[k][0]:
+            raise ValueError(f"features.{ti}.weight has shape {w.shape}, "
+                             f"not ({_VGG_PLAN[k][0]}, in, 3, 3)")
+        out[f"conv{k}_w"] = w
+        out[f"conv{k}_b"] = b
+    for k in range(len(_TAPS)):
+        key = f"lins.{k}.model.1.weight"
+        if key not in lpips_state:  # older lpips layout
+            key = f"lin{k}.model.1.weight"
+        lin = np.asarray(lpips_state[key], np.float32).reshape(-1)
+        if lin.shape[0] != _VGG_PLAN[_TAPS[k]][0]:
+            raise ValueError(f"{key} has {lin.shape[0]} weights, not "
+                             f"{_VGG_PLAN[_TAPS[k]][0]}")
+        out[f"lin{k}"] = lin
+    return out
+
+
 def _features(x: torch.Tensor, params: LPIPSParams) -> list:
     """x: (B, H, W, 3) in [-1, 1] -> the five taps' (B, C, h, w)."""
     shift = torch.from_numpy(_SHIFT).to(x.device)

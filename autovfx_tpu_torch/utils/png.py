@@ -1,12 +1,14 @@
 """PNG files with the standard library only (``zlib``, ``struct``).
 
 The machine that runs the port on the card has no image library, so the
-edit layer writes its frames and reads its instance masks here:
+edit layer writes its frames and reads its instance masks here, and
+``read_rgb`` reads a capture's images (PIL only for other formats):
 8-bit greyscale, greyscale + alpha, RGB, RGBA and palette images, not
 interlaced; every scanline filter.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -125,3 +127,26 @@ def read_mask(path: str) -> np.ndarray:
         img = (rgb[..., 0] * 19595 + rgb[..., 1] * 38470
                + rgb[..., 2] * 7471 + 0x8000) >> 16
     return img > 127
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 of an image file: PNG here, another format with
+    PIL, which must then be importable."""
+    with open(path, "rb") as f:
+        is_png = f.read(8) == _SIGNATURE
+    if is_png:
+        img = read_png(path)
+        if img.ndim == 2:
+            img = img[..., None]
+        # grey(+alpha) to RGB, alpha dropped, as PIL's convert("RGB")
+        return np.ascontiguousarray(
+            np.repeat(img[..., :1], 3, axis=2) if img.shape[2] <= 2
+            else img[..., :3])
+    try:
+        from PIL import Image
+    except ImportError as e:
+        fmt = os.path.splitext(path)[1] or "unknown"
+        raise RuntimeError(
+            f"{path}: a {fmt} image needs PIL, which is not installed; "
+            "only PNG is read without it") from e
+    return np.asarray(Image.open(path).convert("RGB"))

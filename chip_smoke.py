@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: the novel view,
 training, the edited frame, its effects, a panorama, an edit program
-and a removal program through the port's edit entry, and the SuGaR
-reconstruction through the port's CLI.
+and a removal program through the port's edit entry, the SuGaR
+reconstruction through the port's CLI, the multi-device layer, the
+dataset tooling and the from-scratch trainer.
 
 Run from the root of a checkout, with no arguments:
 
@@ -102,14 +103,38 @@ in (never JAX, never ``autovfx_tpu``) and
     the coarse Gaussians at the CLI's budget, and (the two backward ones)
     on the inputs a regularized coarse step gives them: kernel 4 with
     the SuGaR terms' depth and alpha cotangents;
-14. times the physics substep and the edited clip's replay (last: the
+14. runs the parallel layer (``autovfx_tpu_torch/parallel``) at the
+    training point's state: over one NCCL rank, ``dp_train_step``
+    against ``train_step`` and the full-capacity, compact and distributed
+    slab renders and the ring as a trajectory against ``rasterize``,
+    timed beside them; kernels 1-3 on a slab of four against their plain
+    versions, and kernel 4 and the preprocess backward at a DP rank's
+    step; then four gloo ranks sharing the card: the DP step over ring
+    cameras 0, 2, 4 and 6 against one Adam step on the mean of those
+    cameras' gradients, the slab paths against the single render at the
+    JAX tests' bounds, the trajectory's builds against the reshard rule,
+    each path's launches and each rank's peak memory a path;
+15. runs the dataset tooling: the ring written as a COLMAP model, read
+    back by ``readers.read_360`` (against the Garden frame recomputed),
+    the scene moved into the reader's frame and its 8 depths (and its
+    ground disc's alone) rendered, ``normals_from_depth`` on the card
+    against the CPU, the gravity found again from the disc's normals
+    (RANSAC, ``up_alignment_rotation``, ``normalize_poses``: the aligned
+    ring level), ``estimate_scene_scale`` on the edit program's table
+    against a plain float64 ray cast, and a 60-frame orbit written,
+    reloaded and rendered;
+16. runs ``python -m autovfx_tpu_torch.train_at_scale``'s ``main`` at
+    300,000 splats, 1296×840 and 24 views for 300 steps: its launches,
+    and its final PSNR above its start's;
+17. times the physics substep and the edited clip's replay (last: the
     profiler's sessions after its long one lose records);
-15. puts each kernel's time on each path beside its bound (``bound``:
+18. puts each kernel's time on each path beside its bound (``bound``:
     the least time the card could take, from the bytes and operations
     that path's inputs need, ``*_work``) and their ratio, the share.
 
 Any failed check raises, so the exit code is not 0.  The last three
-lines of output are a JSON object of the kernels (with each path's own
+lines of output, after the run's total seconds, are a JSON object of
+the kernels (with each path's own
 launch counts, times and bounds), the card's name and power limit as
 ``nvidia-smi`` prints them, and a JSON object that says the run passed.
 """
@@ -1357,8 +1382,11 @@ def check_state(state, what: str) -> None:
                       f"{what}: {name}.{f.name} not finite")
 
 
-def training_point(P, card: str):
-    from autovfx_tpu_torch.train import losses, trainer
+def training_setup(P):
+    """The training point: the ring, the target scene, the config (the
+    novel view's budget sizing, with room for densify to fill the
+    capacity), the target's renders and the perturbed start."""
+    from autovfx_tpu_torch.train import trainer
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
     ops = P.ops
@@ -1367,17 +1395,24 @@ def training_point(P, card: str):
     target = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
     worst = max(int(ops.binning.required_budget(
         ops.preprocess_cuda.preprocess(target, c, tile=TILE))) for c in cams)
-    # the novel view's sizing, with room for densify to fill the capacity
     budget = ops.binning.round_budget(worst,
                                       slack=BUDGET_SLACK * CAPACITY / N_SPLATS)
     cfg = trainer.TrainConfig(raster=P.RasterConfig(dup_budget=budget,
                                                     tile=TILE),
                               spatial_lr_scale=EXTENT)
     images, start = train_targets(P, target, cams, cfg)
-    del target
     print(f"training scene: {N_SPLATS} splats in {CAPACITY} slots, "
           f"duplicates: worst target view {worst}, budget {budget}; made in "
           f"{time.perf_counter() - t0:.1f} s")
+    return cams, target, cfg, images, start
+
+
+def training_point(P, card: str):
+    from autovfx_tpu_torch.train import losses, trainer
+
+    ops = P.ops
+    cams, target, cfg, images, start = training_setup(P)
+    del target
     state = trainer.init_state(start)
     loss0 = camera0_loss(P, losses, state.gaussians, cams[0], images[0], cfg)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -4193,6 +4228,749 @@ def sugar_card_against_cpu(P) -> None:
           f" farthest {far:.3g} (voxel diagonal {voxel:.3g}): ok")
 
 
+# ---- multi-device point ------------------------------------------------------
+#
+# The parallel layer (autovfx_tpu_torch/parallel) at the training point's
+# state: the Garden-like 1M splats in 1.25M slots, the ring, tile 32.  One
+# NCCL rank on the card (its all-reduce is a copy), then MD_RANKS gloo
+# ranks sharing the card (NCCL refuses two ranks on one card; gloo moves
+# each message through the host), each path held to the JAX package's
+# bounds (tests/test_parallel.py:47-66).  The D > 1 times are four ranks
+# on one card, not a scaling figure.
+MD_RANKS = 4
+MD_ONE_RANK = "nccl"  # the one-rank world's backend
+MD_DP_CAMERAS = (0, 2, 4, 6)  # one ring camera a rank
+MD_TIMED = 5
+SLAB_COLOR_ATOL, SLAB_DEPTH_ATOL = 2e-3, 5e-3
+DP_LOSS_RTOL = 1e-4
+ALPHA_ROUNDING = 1.2e-7  # a slab's alpha is 1 - (1 - alpha) at D = 1
+GRAD_STATS_TOL = 1e-4  # the summed NDC norms: atomics in no fixed order
+# Adam's first step moves a parameter by lr · sign(mean gradient), so where
+# the DP step's and the reference's mean gradients differ in sign (both
+# rounding noise about zero: the backward sums with atomics) the two
+# parameters differ by 2 lr; such elements, at most this share, are left
+# out of the parameters' comparison and counted
+MAX_SIGN_FLIPS = 1e-5
+# the trajectory's reshard rule (sharding.sharded_render_trajectory)
+RESHARD_TRANSLATION, RESHARD_COS = 0.25, 0.97
+
+
+def expected_reshards(cams, radius: float) -> int:
+    """The slab builds of a trajectory by the reshard rule, recomputed:
+    a new anchor where the camera moved more than 0.25 × the scene radius
+    or turned past cos 0.97 (a build that overflows is retried, not
+    counted again)."""
+    anchor, n = None, 0
+    for cam in cams:
+        if anchor is None or (
+                float(torch.linalg.norm(cam.center - anchor.center))
+                > RESHARD_TRANSLATION * radius
+                or float(torch.dot(cam.R[2], anchor.R[2])) < RESHARD_COS):
+            anchor, n = cam, n + 1
+    return n
+
+
+def slab_errors(out, color, depth, alpha) -> tuple[float, float, float]:
+    """Max |composite - reference| of color, depth and alpha (host)."""
+    return tuple(float((a.cpu() - b.cpu()).abs().max())
+                 for a, b in zip(out, (color, depth, alpha)))
+
+
+def check_slab(errs, what: str) -> None:
+    check(errs[0] <= SLAB_COLOR_ATOL and errs[2] <= SLAB_COLOR_ATOL
+          and errs[1] <= SLAB_DEPTH_ATOL,
+          f"{what}: color, depth, alpha max err {errs} (bounds "
+          f"{SLAB_COLOR_ATOL}, {SLAB_DEPTH_ATOL})")
+
+
+def path_counts(c: dict) -> dict:
+    """A path's launches by kernel: kernel 3's two entries together."""
+    c = dict(c)
+    c["blend_fwd"] += c.pop("blend_fwd_train")
+    return c
+
+
+def slab_paths_launches(frames: int) -> dict:
+    """One DP step, three slab renders and ``frames`` trajectory frames."""
+    renders = 3 + frames
+    return {"preprocess": 1 + renders, "duplicate_with_keys": 1 + renders,
+            "blend_fwd": renders, "blend_fwd_train": 1, "blend_bwd": 1,
+            "preprocess_bwd": 1}
+
+
+def check_dp_state(state, ref, what: str) -> tuple[float, int, int]:
+    """A DP step's state against a reference state after one step: the
+    densify counts equal, the summed NDC norms within GRAD_STATS_TOL and
+    the Adam moments within STATE_TOL of each field's largest, and the
+    parameters too but where the two mean gradients differ in sign (at
+    most MAX_SIGN_FLIPS of them).  Returns (the largest error, the
+    elements of another sign, the elements)."""
+    from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS
+
+    check(torch.equal(state.stats.denom, ref.stats.denom)
+          and torch.equal(state.stats.max_radii, ref.stats.max_radii),
+          f"{what}: the densify counts differ")
+    rel = lambda a, b, keep=1: float(((a - b).abs() * keep).max()
+                                     / b.abs().max())
+    errs = {"grad_accum": rel(state.stats.grad_accum, ref.stats.grad_accum)}
+    check(errs["grad_accum"] <= GRAD_STATS_TOL,
+          f"{what}: grad_accum off by {errs['grad_accum']}")
+    flips = n = 0
+    for f in PARAM_FIELDS:
+        for name in ("m", "v"):
+            errs[f"{name}.{f}"] = rel(getattr(getattr(state.adam, name), f),
+                                      getattr(getattr(ref.adam, name), f))
+        same = (torch.sign(getattr(state.adam.m, f))
+                == torch.sign(getattr(ref.adam.m, f)))
+        flips += int((~same).sum())
+        n += same.numel()
+        errs[f] = rel(getattr(state.gaussians, f), getattr(ref.gaussians, f),
+                      same)
+    bad = {k: e for k, e in errs.items() if k != "grad_accum" and e > STATE_TOL}
+    check(not bad and flips <= MAX_SIGN_FLIPS * n,
+          f"{what}: {bad}; {flips} of {n} mean gradients of another sign")
+    return max(errs.values()), flips, n
+
+
+def one_nccl_rank(P, card, cams, target, cfg, images, start) -> tuple:
+    """The paths over one NCCL rank against the single-device ones."""
+    from autovfx_tpu_torch.core.cameras import stack_cameras
+    from autovfx_tpu_torch.parallel import make_mesh
+    from autovfx_tpu_torch.parallel import mesh as M
+    from autovfx_tpu_torch.parallel import sharding as S
+    from autovfx_tpu_torch.train import trainer
+
+    ops = P.ops
+    mesh = make_mesh((1, 1), backend=MD_ONE_RANK, device=DEVICE)
+    x = torch.randn(1 << 20, device=DEVICE)
+    check(torch.equal(M.all_reduce(x.clone(), mesh, "data"), x),
+          "an all-reduce over one NCCL rank is not a copy")
+    cam, img, cfg_r = cams[0], images[0], cfg.raster
+    bg = torch.tensor([0.3, 0.2, 0.1], device=DEVICE)
+    ring = stack_cameras(cams)
+
+    def paths():
+        s_dp, a_dp = S.dp_train_step(trainer.init_state(start), cam, img, cfg,
+                                     mesh)
+        full = S.sharded_render(S.shard_gaussians(target, cam, 1, 0), cam,
+                                mesh, cfg_r, bg)
+        compact, c_ovf = S.shard_gaussians_compact(target, cam, 1, 0)
+        comp = S.sharded_render_compact(compact, cam, mesh, cfg_r, bg)
+        store = S.round_robin_store(target, 1, 0)
+        built, d_ovf = S.distributed_shard_compact(store, cam, mesh)
+        dist_out = S.sharded_render_compact(built, cam, mesh, cfg_r, bg)
+        frames, reshards = S.sharded_render_trajectory(store, ring, N_CAMS,
+                                                       mesh, cfg_r, bg)
+        return (s_dp, a_dp, full, comp, dist_out, frames, reshards,
+                bool(c_ovf), bool(d_ovf))
+
+    sync()
+    reset_counters(ops)
+    (s_dp, a_dp, full, comp, dist_out, frames, reshards, c_ovf,
+     d_ovf) = paths()
+    sync()
+    launches = counters(ops)
+    check_launches(launches, slab_paths_launches(N_CAMS),
+                   "multi-device, one NCCL rank")
+
+    s_seq, a_seq = trainer.train_step(trainer.init_state(start), cam, img,
+                                      cfg)
+    for name, a, b in (("loss", a_dp.loss, a_seq.loss),
+                       ("psnr", a_dp.psnr, a_seq.psnr),
+                       ("densify visibility", s_dp.stats.denom,
+                        s_seq.stats.denom),
+                       ("densify radii", s_dp.stats.max_radii,
+                        s_seq.stats.max_radii)):
+        check(torch.equal(a, b), f"one NCCL rank: dp_train_step's {name} is "
+              "not train_step's")
+    worst, flips, n_params = check_dp_state(s_dp, s_seq, "one NCCL rank")
+    with torch.no_grad():
+        ref = P.rasterize(target, cam, bg=bg, config=cfg_r)
+        check(not bool(ref.overflow), "multi-device reference: overflow")
+        errs = {}
+        for name, out in (("full", full), ("compact", comp),
+                          ("distributed", dist_out)):
+            errs[name] = slab_errors(out, ref.color, ref.depth, ref.alpha)
+            check(errs[name][0] == 0.0 and errs[name][1] == 0.0
+                  and errs[name][2] <= ALPHA_ROUNDING,
+                  f"one NCCL rank, {name} slab: {errs[name]}")
+        traj_err = max(float((frames[f] - P.rasterize(
+            target, cams[f], bg=bg, config=cfg_r).color).abs().max())
+            for f in range(N_CAMS))
+    check(traj_err == 0.0, f"one NCCL rank, trajectory: {traj_err}")
+    radius = float(torch.linalg.norm(target.xyz, dim=-1).max())
+    want_reshards = expected_reshards(cams, radius)
+    check(reshards == want_reshards and not c_ovf and not d_ovf,
+          f"one NCCL rank: {reshards} reshards (the rule: {want_reshards}),"
+          f" overflow {c_ovf} {d_ovf}")
+    print(f"multi-device, one NCCL rank: dp_train_step's loss, PSNR and "
+          f"densify counts equal train_step's, the state within {worst:.2g} "
+          f"of each field's largest ({flips} of {n_params} gradients of "
+          f"another sign: the backward's atomics); the full, compact and distributed slab renders and "
+          f"the {N_CAMS}-frame trajectory ({reshards} builds, the rule's "
+          f"count) equal rasterize (alpha within "
+          f"{max(e[2] for e in errs.values()):.2g}): ok")
+
+    # the wrappers' overhead at D = 1, in turns
+    state_dp, state_seq = trainer.init_state(start), trainer.init_state(start)
+    store = S.round_robin_store(target, 1, 0)
+    compact, _ = S.shard_gaussians_compact(target, cam, 1, 0)
+    times = {
+        "train_step": cuda_ms(lambda: trainer.train_step(
+            state_seq, cam, img, cfg), MD_TIMED),
+        "dp_train_step": cuda_ms(lambda: S.dp_train_step(
+            state_dp, cam, img, cfg, mesh), MD_TIMED),
+        "rasterize": cuda_ms(lambda: P.rasterize(target, cam, bg=bg,
+                                                 config=cfg_r), MD_TIMED),
+        "sharded_render": cuda_ms(lambda: S.sharded_render(
+            S.shard_gaussians(target, cam, 1, 0), cam, mesh, cfg_r, bg),
+            MD_TIMED),
+        "sharded_render_compact": cuda_ms(lambda: S.sharded_render_compact(
+            compact, cam, mesh, cfg_r, bg), MD_TIMED),
+        "distributed build + render": cuda_ms(
+            lambda: S.sharded_render_compact(S.distributed_shard_compact(
+                store, cam, mesh)[0], cam, mesh, cfg_r, bg), MD_TIMED),
+    }
+    print(f"[{card}] D = 1 over NCCL (median of {MD_TIMED}, CUDA events): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    return launches, times
+
+
+def multi_device_rank(rank: int, world: int, spec: dict) -> dict:
+    """One of the gloo ranks sharing the card: the DP step with ring
+    camera ``MD_DP_CAMERAS[rank]``, the full-capacity, compact and
+    distributed slab renders of camera 0 and the ring as a trajectory,
+    each path counted and its peak memory read with only its own inputs
+    held; rank 0 also takes the DP reference.  The rank runs at the
+    parent's operating point (``spec["constants"]``)."""
+    globals().update(spec["constants"])
+    P = import_port()
+    from autovfx_tpu_torch.core.cameras import stack_cameras
+    from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS
+    from autovfx_tpu_torch.parallel import make_mesh
+    from autovfx_tpu_torch.parallel import sharding as S
+    from autovfx_tpu_torch.train import trainer
+    from autovfx_tpu_torch.train.densify import DensifyStats
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like
+
+    ops = P.ops
+    dev = torch.device(DEVICE)
+    on_card = dev.type == "cuda"
+    peak = lambda: torch.cuda.max_memory_allocated() if on_card else 0
+    reset_peak = (torch.cuda.reset_peak_memory_stats if on_card
+                  else lambda: None)
+    cams = ring_cameras()
+    target = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=dev)
+    cfg = trainer.TrainConfig(raster=P.RasterConfig(
+        dup_budget=spec["budget"], tile=TILE), spatial_lr_scale=EXTENT)
+    images, start = train_targets(P, target, cams, cfg)
+    mesh_dp = make_mesh((world, 1), backend="gloo", device=dev)
+    mesh_g = make_mesh((1, world), backend="gloo", device=dev)
+    bg = torch.tensor([0.3, 0.2, 0.1], device=dev)
+    c = MD_DP_CAMERAS[rank]
+    out = {"peaks": {}, "ms": {}}
+    launches = dict.fromkeys(counters(ops), 0)
+
+    def counted(fn):
+        sync_any()
+        reset_counters(ops)
+        r = fn()
+        sync_any()
+        for k, n in counters(ops).items():
+            launches[k] += n
+        return r
+
+    def sync_any():
+        if on_card:
+            sync()
+
+    # the DP step, then (rank 0) its reference: the mean of the four
+    # single-camera gradients and one apply_adam
+    state, aux = counted(lambda: S.dp_train_step(
+        trainer.init_state(start), cams[c], images[c], cfg, mesh_dp))
+    if on_card:
+        timed = trainer.init_state(start)
+        out["ms"]["dp_train_step"] = cuda_ms(lambda: S.dp_train_step(
+            timed, cams[c], images[c], cfg, mesh_dp), MD_TIMED)
+        del timed
+    if rank == 0:
+        total, losses, stats = None, [], DensifyStats.zero(start.capacity,
+                                                           device=dev)
+        for ci in MD_DP_CAMERAS:
+            loss, (radii, _, _), grads, off = trainer.loss_and_grads(
+                start, lambda g, o, ci=ci: trainer.compute_loss(
+                    g, o, cams[ci], images[ci], cfg))
+            losses.append(float(loss))
+            total = grads if total is None else {
+                f: total[f] + grads[f] for f in PARAM_FIELDS}
+            stats = stats.update(off, radii, WIDTH, HEIGHT)
+        ref = trainer.init_state(start)
+        g_ref, adam_ref = trainer.apply_adam(
+            ref.gaussians, ref.adam, {f: total[f] / world
+                                      for f in PARAM_FIELDS}, 0, cfg)
+        ref = trainer.TrainState(gaussians=g_ref, adam=adam_ref, stats=stats,
+                                 step=1)
+        want_loss = float(np.mean(losses))
+        check(abs(float(aux.loss) - want_loss) <= DP_LOSS_RTOL * want_loss,
+              f"DP loss {float(aux.loss)} vs the mean {want_loss}")
+        worst, flips, n_params = check_dp_state(
+            state, ref, f"the DP step over cameras {MD_DP_CAMERAS}")
+        out["dp"] = {"loss": float(aux.loss), "want_loss": want_loss,
+                     "worst": worst, "flips": flips, "n_params": n_params}
+        del total, ref, g_ref, adam_ref, grads, off, radii, stats
+    del state, start, images
+
+    # the references, on the host; then each slab path holding only its
+    # own inputs
+    with torch.no_grad():
+        ref = P.rasterize(target, cams[0], bg=bg, config=cfg.raster)
+        check(not bool(ref.overflow), "D = 4 reference: overflow")
+        ref = tuple(x.cpu() for x in (ref.color, ref.depth, ref.alpha))
+        frames_ref = [P.rasterize(target, cam, bg=bg, config=cfg.raster)
+                      .color.cpu() for cam in cams]
+        radius = float(torch.linalg.norm(target.xyz, dim=-1).max())
+        errs = {}
+        full = S.shard_gaussians(target, cams[0], world, rank)
+        reset_peak()
+        got = counted(lambda: S.sharded_render(full, cams[0], mesh_g,
+                                               cfg.raster, bg))
+        out["peaks"]["full"] = peak()
+        errs["full"] = slab_errors(got, *ref)
+        if on_card:
+            out["ms"]["sharded_render"] = cuda_ms(lambda: S.sharded_render(
+                full, cams[0], mesh_g, cfg.raster, bg), MD_TIMED)
+        compact, c_ovf = S.shard_gaussians_compact(target, cams[0], world,
+                                                   rank)
+        # the store in a seeded arbitrary order, as a loader leaves it
+        # (make_garden_like's rows run ground, clutter, shell: striped as
+        # they are, each stripe's splats crowd a few slabs, and the pairs
+        # overflow their blocks)
+        order = torch.randperm(N_SPLATS, generator=torch.Generator()
+                               .manual_seed(0)).to(dev)
+        store = S.round_robin_store(dataclasses.replace(target, **{
+            f.name: getattr(target, f.name)[order]
+            for f in dataclasses.fields(target)}), world, rank)
+        store = dataclasses.replace(store, **{
+            f.name: getattr(store, f.name).clone()
+            for f in dataclasses.fields(store)})
+        del full, target, order
+        reset_peak()
+        got = counted(lambda: S.sharded_render_compact(compact, cams[0],
+                                                       mesh_g, cfg.raster,
+                                                       bg))
+        out["peaks"]["compact"] = peak()
+        errs["compact"] = slab_errors(got, *ref)
+        if on_card:
+            out["ms"]["sharded_render_compact"] = cuda_ms(
+                lambda: S.sharded_render_compact(compact, cams[0], mesh_g,
+                                                 cfg.raster, bg), MD_TIMED)
+        del compact
+        reset_peak()
+        built, d_ovf = counted(lambda: S.distributed_shard_compact(
+            store, cams[0], mesh_g))
+        got = counted(lambda: S.sharded_render_compact(built, cams[0], mesh_g,
+                                                       cfg.raster, bg))
+        out["peaks"]["distributed"] = peak()
+        errs["distributed"] = slab_errors(got, *ref)
+        if on_card:
+            out["ms"]["distributed build + render"] = cuda_ms(
+                lambda: S.sharded_render_compact(S.distributed_shard_compact(
+                    store, cams[0], mesh_g)[0], cams[0], mesh_g, cfg.raster,
+                    bg), MD_TIMED)
+        del built
+        frames, reshards = counted(lambda: S.sharded_render_trajectory(
+            store, stack_cameras(cams), N_CAMS, mesh_g, cfg.raster, bg))
+        errs["trajectory"] = (max(float((frames[f].cpu() - frames_ref[f])
+                                        .abs().max())
+                                  for f in range(N_CAMS)), 0.0, 0.0)
+    out.update(errs=errs, launches=launches, reshards=reshards,
+               want_reshards=expected_reshards(cams, radius),
+               overflow=(bool(c_ovf), bool(d_ovf)))
+    return out
+
+
+def multi_device_point(P, card: str) -> tuple[dict, dict]:
+    """The parallel layer on one NCCL rank and on MD_RANKS gloo ranks
+    sharing the card; kernels 1-3 against their plain versions at a
+    slab's shapes, kernel 4 and the preprocess backward at a DP rank's."""
+    import torch.distributed as dist
+
+    from autovfx_tpu_torch.parallel import launch
+    from autovfx_tpu_torch.parallel import sharding as S
+
+    ops = P.ops
+    t0 = time.perf_counter()
+    cams, target, cfg, images, start = training_setup(P)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(MD_ONE_RANK, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            launches, times = one_nccl_rank(P, card, cams, target, cfg,
+                                            images, start)
+        finally:
+            dist.destroy_process_group()
+
+    rng = np.random.default_rng(12)
+    slab, _ = S.shard_gaussians_compact(target, cams[0], MD_RANKS, 0)
+    what = f"slab 0 of {MD_RANKS} ({slab.capacity} rows)"
+    err = check_view_kernels(P, slab, cams[0], cfg.raster.dup_budget, TILE,
+                             rng, what)
+    tx, ty = ops.projection.num_tiles(WIDTH, HEIGHT, TILE)
+    tiles = torch.from_numpy(rng.choice(tx * ty, CHECK_TILES,
+                                        replace=False)).to(DEVICE)
+    cam = cams[MD_DP_CAMERAS[1]]
+    what_bwd = f"a DP rank's step ({CAPACITY} slots, camera {MD_DP_CAMERAS[1]})"
+    err["preprocess_bwd"], _ = check_preprocess_bwd(P, start, cam, TILE, rng,
+                                                    what_bwd)
+    err["blend_bwd"], _, zeroed, n_px = check_blend_bwd(
+        P, start, cam, TILE, rng, what_bwd, tiles=tiles)
+    sync()
+    print(f"checks at {what} and {what_bwd}: kernels 1-3, kernel 4 "
+          f"({zeroed} of {n_px} pixels zeroed) and the preprocess backward "
+          f"against their plain versions: ok (max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err.items()) + ")")
+    budget = cfg.raster.dup_budget
+    del cams, target, images, start, slab
+    torch.cuda.empty_cache()  # the ranks share the card
+
+    t1 = time.perf_counter()
+    constants = {k: globals()[k] for k in (
+        "DEVICE", "N_SPLATS", "CAPACITY", "EXTENT", "WIDTH", "HEIGHT",
+        "N_CAMS", "TILE")}
+    ranks = launch.spawn(MD_RANKS, multi_device_rank,
+                         ({"budget": budget, "constants": constants},),
+                         backend="gloo", device=DEVICE)
+    ranks_s = time.perf_counter() - t1
+    dp = ranks[0]["dp"]
+    for r, res in enumerate(ranks):
+        for name, e in res["errs"].items():
+            check_slab(e, f"rank {r} of {MD_RANKS}, {name} slabs")
+        check(res["reshards"] == res["want_reshards"],
+              f"rank {r}: {res['reshards']} slab builds, the rule's "
+              f"{res['want_reshards']}")
+        check(not any(res["overflow"]), f"rank {r}: slab overflow "
+              f"{res['overflow']}")
+        check_launches(res["launches"], slab_paths_launches(N_CAMS),
+                       f"multi-device, gloo rank {r}")
+        pk = res["peaks"]
+        check(pk["compact"] < pk["full"] and pk["distributed"] < pk["full"],
+              f"rank {r}: peak memory {pk}: the compact or distributed "
+              "slabs do not stay below the full-capacity ones")
+        for k, n in res["launches"].items():
+            launches[k] += n
+    gib = lambda b: b / 2**30
+    print(f"multi-device, {MD_RANKS} gloo ranks on one card ({ranks_s:.1f} s "
+          f"with their start): the DP step over cameras {MD_DP_CAMERAS}: "
+          f"loss {dp['loss']:.6f} vs the mean {dp['want_loss']:.6f}, the "
+          f"state within {dp['worst']:.2g} of each field's largest of one "
+          f"apply_adam on the mean gradient ({dp['flips']} of "
+          f"{dp['n_params']} mean gradients of another sign); slabs against "
+          f"rasterize, max color/depth/alpha err: "
+          + "; ".join(f"{k} " + "/".join(f"{x:.2g}" for x in e)
+                      for k, e in ranks[0]["errs"].items())
+          + f"; {ranks[0]['reshards']} slab builds over the ring (the "
+          f"rule's); no overflow: ok")
+    print(f"[{card}] peak device memory a rank (full-capacity / compact / "
+          "distributed slabs, each path with only its inputs held): "
+          + "; ".join(f"rank {r} " + " / ".join(
+              f"{gib(res['peaks'][k]):.3f}" for k in (
+                  "full", "compact", "distributed")) + " GiB"
+              for r, res in enumerate(ranks)))
+    print(f"[{card}] four ranks on one card, not a scaling figure (rank 0, "
+          f"median of {MD_TIMED}, CUDA events): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ranks[0]["ms"].items()))
+    print(f"multi-device point: {time.perf_counter() - t0:.1f} s")
+    return path_counts(launches), err
+
+
+# ---- dataset tooling point ---------------------------------------------------
+#
+# The capture tooling on the bench scene: the ring written as a COLMAP
+# model named ``garden`` (so the reader applies the Garden scene's
+# calibrated up vector), read back, the scene moved into the reader's
+# frame, the 8 depths rendered and their normals, the gravity found
+# again from the ground disc's normals, the scene scale from the table's
+# mesh and silhouette, and a 60-frame orbit written, reloaded and
+# rendered.
+NORMAL_TOL = 1e-5  # card against the CPU, and |n| against 1
+# The clutter hides the ground disc from the ring (no pixel of a ring
+# view of the 200,000-splat scene is 99 % disc), so the disc's splats
+# (make_garden_like's first half) are rendered alone for its normals; a
+# ground pixel is one they cover to alpha OPAQUE_ALPHA.
+OPAQUE_ALPHA = 0.99
+RANSAC_ITERS, RANSAC_SAMPLES = 100, 10_000
+# The recovered up must lie inside the RANSAC's own inlier cone (cos 0.99,
+# alignment.py) about the true one: the disc is a 5 cm thick layer of
+# 4-20 mm splats (z × 0.02 of its 2.67 m spread), so its depth normals
+# scatter widely about the up.  The aligned ring's heights (all 1.4 m in
+# the scene's frame) then spread by at most sin(tilt) / sqrt(2) of its
+# radius.
+UP_COS_MIN = 0.99
+LEVEL_STD_MAX = float(np.sqrt(1.0 - UP_COS_MIN**2) / np.sqrt(2.0))
+TRAJ_FRAMES = 60
+TRAJ_COVER_MIN = 0.5  # mean alpha of each orbit frame
+SCALE_RTOL = 1e-4
+
+
+def ray_hits_f64(origin, dirs, verts, faces):
+    """(R,) float64 distance to the first triangle each ray hits (inf on a
+    miss): Möller-Trumbore one triangle at a time, in float64."""
+    best = np.full(len(dirs), np.inf)
+    for a, b, c in verts[faces].astype(np.float64):
+        e1, e2 = b - a, c - a
+        p = np.cross(dirs, e2)
+        det = p @ e1
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = 1.0 / det
+            tv = origin - a
+            u = (p @ tv) * inv
+            q = np.cross(tv, e1)
+            v = (dirs @ q) * inv
+            t = (q @ e2) * inv
+        ok = (np.abs(det) > 1e-9) & (u >= 0) & (v >= 0) & (u + v <= 1) & (
+            t > 1e-6)
+        best = np.where(ok & (t < best), t, best)
+    return best
+
+
+def dataset_tools_point(P, card: str) -> dict:
+    from autovfx_tpu_torch.core import cameras as C
+    from autovfx_tpu_torch.core.quaternion import rotmat_to_quat
+    from autovfx_tpu_torch.dataset import alignment, mono_normal, readers
+    from autovfx_tpu_torch.dataset import scene_scale, trajectories
+    from autovfx_tpu_torch.edit.mesh_io import Mesh
+    from autovfx_tpu_torch.perception.gpt4v import estimate_object_scale
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like
+
+    ops = P.ops
+    seconds = {}
+
+    @contextlib.contextmanager
+    def stage(name: str):
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        seconds[name] = time.perf_counter() - t0
+
+    g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
+    cams = ring_cameras()
+    rgb8 = torch.round(torch.clamp(g.sh_dc * SH_C0 + 0.5, 0, 1) * 255).to(
+        torch.uint8)
+    with tempfile.TemporaryDirectory() as root:
+        garden = os.path.join(root, "garden")
+        write_colmap_model(os.path.join(garden, "sparse", "0"), cams,
+                           g.xyz.cpu().numpy(), rgb8.cpu().numpy())
+        sync()
+        reset_counters(ops)
+        with stage("read_360"):
+            dc = readers.read_360(garden)
+            rcams = readers.to_cameras(dc, WIDTH, HEIGHT, device=DEVICE)
+        # the reader's frame, recomputed: the Garden up vector onto +z,
+        # the centers zero-mean over 1.1 × their farthest
+        r = alignment.up_alignment_rotation(np.asarray(
+            readers.SCENE_UP_VECTORS["360"]["garden"]))
+        centers = np.stack([c.center.double().cpu().numpy() for c in cams])
+        centers = centers @ r.T
+        mean = centers.mean(0)
+        radius = 1.1 * float(np.linalg.norm(centers - mean, axis=1).max())
+        want = np.stack([np.concatenate(
+            [r @ c.c2w.double().cpu().numpy()[:3, :3],
+             ((x - mean) / radius)[:, None]], 1)
+            for c, x in zip(cams, centers)])
+        check(dc.names == [f"view_{i}.png" for i in range(N_CAMS)]
+              and np.abs(dc.c2w - want).max() < 1e-6
+              and np.allclose(dc.K[[0, 1, 0, 1], [0, 1, 2, 2]], [
+                  float(cams[0].fx), float(cams[0].fy), float(cams[0].cx),
+                  float(cams[0].cy)]),
+              f"read_360: poses off by {np.abs(dc.c2w - want).max():.3g}")
+        q = rotmat_to_quat(torch.tensor(r, dtype=torch.float32)).to(DEVICE)
+        g_r = g.transformed(scale=1.0 / radius, rotation_quat=q,
+                            translation=torch.tensor(-mean / radius,
+                                                     dtype=torch.float32,
+                                                     device=DEVICE),
+                            pivot=torch.zeros(3, device=DEVICE))
+        with stage("depths"):
+            worst = max(int(ops.binning.required_budget(
+                ops.preprocess_cuda.preprocess(g_r, C.index_camera(rcams, i),
+                                               tile=TILE)))
+                for i in range(N_CAMS))
+            config = P.RasterConfig(dup_budget=ops.binning.round_budget(
+                worst, slack=BUDGET_SLACK), tile=TILE)
+            outs = [P.rasterize(g_r, C.index_camera(rcams, i), config=config)
+                    for i in range(N_CAMS)]
+            sync()
+        check(not any(bool(o.overflow) for o in outs), "depths: overflow")
+        with stage("normals"):
+            normals = [mono_normal.normals_from_depth(
+                o.depth, C.index_camera(rcams, i)) for i, o in enumerate(outs)]
+            sync()
+        disc = dataclasses.replace(g_r, active=g_r.active & (torch.arange(
+            g_r.capacity, device=DEVICE) < N_SPLATS // 2))
+        with torch.no_grad():
+            grounds = [P.rasterize(disc, C.index_camera(rcams, i),
+                                   config=config) for i in range(N_CAMS)]
+        with stage("ground normals"):
+            ground_normals = [mono_normal.normals_from_depth(
+                o.depth, C.index_camera(rcams, i))
+                for i, o in enumerate(grounds)]
+            sync()
+        n_err, ground = 0.0, []
+        for i, (o, n) in enumerate(zip(outs + grounds,
+                                       normals + ground_normals)):
+            cam_i = C.index_camera(rcams, i % N_CAMS)
+            cpu_cam = dataclasses.replace(cam_i, **{
+                f: getattr(cam_i, f).cpu() for f in ("R", "t", "fx", "fy",
+                                                     "cx", "cy")})
+            want_n = mono_normal.normals_from_depth(o.depth.cpu(), cpu_cam)
+            n_err = max(n_err, float((n.cpu() - want_n).abs().max()))
+            norm = torch.linalg.norm(n, dim=-1)
+            lit = norm > 0.5
+            check(float((norm[lit] - 1).abs().max()) <= NORMAL_TOL
+                  and float(n[..., 2].max()) <= 0.0,
+                  f"view {i}: normals not unit or not inward")
+            if i >= N_CAMS:  # a ground view
+                on = (o.alpha > OPAQUE_ALPHA) & lit
+                ground.append((n[on] @ cam_i.R).cpu().numpy())  # R^T n
+        check(n_err <= NORMAL_TOL, f"normals: card vs CPU {n_err:.3g}")
+        ground = np.concatenate(ground)
+        with stage("gravity"):
+            up = alignment.ransac_mean_normal(ground, iters=RANSAC_ITERS,
+                                              sample_size=RANSAC_SAMPLES)
+            rot = alignment.up_alignment_rotation(up)
+            c2w4 = np.concatenate([dc.c2w, np.tile([[[0, 0, 0, 1.0]]],
+                                                   (N_CAMS, 1, 1))], 1)
+            poses, rot_f32, scale = alignment.normalize_poses(c2w4, up)
+        true_up = r @ np.array([0.0, 0.0, 1.0])
+        cos = float(up @ true_up)
+        heights = poses[:, 2, 3]
+        level = float(heights.std() / np.linalg.norm(poses[:, :2, 3],
+                                                     axis=1).mean())
+        check(len(ground) > RANSAC_SAMPLES and cos >= UP_COS_MIN
+              and np.abs(rot @ up - [0, 0, 1]).max() < 1e-6
+              and level <= LEVEL_STD_MAX
+              and np.abs(poses[:, :3, 3]).max() <= 1.0 + 1e-6,
+              f"gravity: {len(ground)} ground normals, cos {cos:.5f} to the "
+              f"true up, the aligned ring's heights spread {level:.3g}")
+
+        # the scene scale: camera 0, the edit program's table box and its
+        # silhouette (the hull of its corners' projections)
+        verts, faces, _ = table_geometry()
+        cam0 = cams[0]
+        uv, _ = cam0.project(torch.tensor(verts, device=DEVICE))
+        mask = in_polygon(convex_hull(uv.cpu().numpy().astype(np.float64)),
+                          HEIGHT, WIDTH, 0.0).numpy()
+        with stage("scene_scale"):
+            scale_got = scene_scale.estimate_scene_scale(
+                cam0, Mesh(verts, faces), {"table": mask})
+        ys, xs = np.nonzero(mask[::4, ::4])
+        dirs = cam0.ray_directions().double().cpu().numpy()[ys * 4, xs * 4]
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        o = cam0.center.double().cpu().numpy()
+        t = ray_hits_f64(o, dirs, verts, faces)
+        hit = np.isfinite(t)
+        pts = o + dirs[hit] * t[hit, None]
+        scale_want = float(np.linalg.norm(pts.max(0) - pts.min(0))
+                           / estimate_object_scale(None, "table"))
+        check(hit.sum() >= 4 and abs(scale_got - scale_want)
+              <= SCALE_RTOL * scale_want,
+              f"scene scale {scale_got} vs {scale_want} (plain)")
+
+        # a 60-frame orbit at the Garden intrinsics, written, reloaded and
+        # rendered
+        with stage("trajectory"):
+            orbit = trajectories.half_sphere_trajectory(
+                [0.0, 0.0, 0.2], 2.6, 1.2, num_frames=TRAJ_FRAMES,
+                device=DEVICE)
+            path = os.path.join(root, "custom_camera_path", "orbit.json")
+            trajectories.save_trajectory(path, orbit)
+            back, _, names = C.load_custom_trajectory(path, device=DEVICE)
+            worst = max(int(ops.binning.required_budget(
+                ops.preprocess_cuda.preprocess(g, C.index_camera(back, i),
+                                               tile=TILE)))
+                for i in range(TRAJ_FRAMES))
+            tconfig = P.RasterConfig(dup_budget=ops.binning.round_budget(
+                worst, slack=BUDGET_SLACK), tile=TILE)
+            frames = [P.rasterize(g, C.index_camera(back, i), config=tconfig)
+                      for i in range(TRAJ_FRAMES)]
+            sync()
+        launches = counters(ops)
+    renders = 2 * N_CAMS + TRAJ_FRAMES  # depths, the disc's, the orbit
+    check_launches(launches, {  # and a preprocess to size each budget
+        "preprocess": renders + N_CAMS + TRAJ_FRAMES,
+        "duplicate_with_keys": renders, "blend_fwd": renders},
+        "dataset tooling")
+    traj_err = max(float((getattr(back, f) - getattr(orbit, f)).abs().max())
+                   for f in ("R", "t", "fx", "fy", "cx", "cy"))
+    check(traj_err <= 1e-6 and len(names) == TRAJ_FRAMES
+          and (back.width, back.height) == (1296, 840)
+          and not any(bool(f.overflow) for f in frames)
+          and all(bool(torch.isfinite(f.color).all()) for f in frames)
+          and min(float(f.alpha.mean()) for f in frames) > TRAJ_COVER_MIN,
+          f"trajectory: reloaded off by {traj_err:.3g}, or a frame "
+          "overflowed, is not finite or is mostly empty")
+    print(f"dataset tooling: read_360 equals the recomputed Garden frame; "
+          f"normals of the {N_CAMS} depths of the scene and of its ground "
+          f"disc alone on the card within {n_err:.2g} of the CPU, unit and "
+          f"inward; {len(ground)} ground normals give an "
+          f"up {np.degrees(np.arccos(min(cos, 1.0))):.3f} deg from the true "
+          f"one, the aligned ring level to {level:.2g} of its radius; scene "
+          f"scale {scale_got:.6f} (plain {scale_want:.6f}); a "
+          f"{TRAJ_FRAMES}-frame orbit reloaded within {traj_err:.2g} and "
+          f"rendered; launches {launches}: ok")
+    print(f"[{card}] dataset tooling stages (wall s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    return path_counts(launches)
+
+
+# ---- from-scratch training -------------------------------------------------
+#
+# ``python -m autovfx_tpu_torch.train_at_scale`` at its default width
+# (300,000 ground-truth splats, 1296×840, 24 views) for a few hundred
+# steps: too few to densify; the whole 7,000-step curve is a run of its
+# own.
+SCALE_SPLATS, SCALE_VIEWS, SCALE_ITERS = 300_000, 24, 300
+
+
+def train_at_scale_point(P, card: str) -> dict:
+    from autovfx_tpu_torch import train_at_scale as TS
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like
+
+    ops = P.ops
+    args = ["--splats", str(SCALE_SPLATS), "--iters", str(SCALE_ITERS),
+            "--width", str(WIDTH), "--height", str(HEIGHT), "--views",
+            str(SCALE_VIEWS), "--device", DEVICE]
+    # the start's PSNR, on train_at_scale's own scene and views
+    gt_model = make_garden_like(SCALE_SPLATS, extent=TS.EXTENT, device=DEVICE)
+    cams = TS.ring(SCALE_VIEWS, WIDTH, HEIGHT, DEVICE)
+    cfg = TS.raster_config(SCALE_SPLATS)
+    gt = TS.ground_truth(gt_model, cams, cfg)
+    start = TS.mean_psnr(TS.initial_gaussians(gt_model), cams, gt, cfg)
+    del gt_model, gt
+    sync()
+    reset_counters(ops)
+    t0 = time.perf_counter()
+    result = TS.main(args)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counters(ops)
+    renders = 2 * SCALE_VIEWS  # the ground truth and the final PSNR
+    check_launches(launches, {
+        "preprocess": renders + SCALE_ITERS,
+        "duplicate_with_keys": renders + SCALE_ITERS,
+        "blend_fwd": renders, "blend_fwd_train": SCALE_ITERS,
+        "blend_bwd": SCALE_ITERS, "preprocess_bwd": SCALE_ITERS},
+        "train_at_scale")
+    check(result["final_psnr"] > start
+          and all(np.isfinite(h["loss"]) for h in result["history"]),
+          f"train_at_scale: PSNR {start:.3f} -> {result['final_psnr']}")
+    print(f"[{card}] train_at_scale ({SCALE_ITERS} steps; its own CUDA "
+          f"events): {result['value']} iters/s, PSNR {start:.3f} -> "
+          f"{result['final_psnr']} dB, {result['active_splats']} active; "
+          f"the call {wall:.1f} s wall: ok")
+    return path_counts(launches)
+
+
 def physics_point(P, card: str, w, inp, config) -> None:
     """Physics substeps and the whole replay (simulate + render_clip) of
     the edited frame's clip.  Run last: the profiler's sessions after
@@ -4234,6 +5012,7 @@ def physics_point(P, card: str, w, inp, config) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
     P = import_port()
     from autovfx_tpu_torch.ops import _build
 
@@ -4270,9 +5049,12 @@ def main() -> None:
     removal_launches, removal_err = removal_program_point(P, card)
     sugar_launches, sugar_err = sugar_pipeline_point(P, card)
     sugar_card_against_cpu(P)
+    md_launches, md_err = multi_device_point(P, card)
+    dataset_launches = dataset_tools_point(P, card)
+    scale_launches = train_at_scale_point(P, card)
     physics_point(P, card, edit["w"], edit["inp"], edit["config"])
     for part in (train_err, edit_err, fx_err, pano_err, program_err,
-                 removal_err, sugar_err):
+                 removal_err, sugar_err, md_err):
         for k, e in part.items():
             err[k] = max(err.get(k, 0.0), e)
     ms.update(train_ms)
@@ -4290,7 +5072,10 @@ def main() -> None:
                    "panorama": pano_launches[k],
                    "edit_program": program_launches[k],
                    "removal_program": removal_launches[k],
-                   "sugar_pipeline": sugar_launches[k]}
+                   "sugar_pipeline": sugar_launches[k],
+                   "multi_device": md_launches[k],
+                   "dataset_tools": dataset_launches[k],
+                   "train_at_scale": scale_launches[k]}
         main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],
@@ -4299,6 +5084,7 @@ def main() -> None:
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             bound_rate=main["bound_rate"], share=main["share"],
             paths=perf[k]))
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -921,3 +921,64 @@ def test_sugar_level_set_matches_cpu(dev):
     assert both.sum() > 100
     err = np.abs(ls_g.points.cpu().numpy()[both] - ls_c.points.numpy()[both])
     assert float(err.max()) <= cs.LEVEL_POINT_TOL
+
+
+def test_one_nccl_rank_matches_the_single_device_paths(scene, tmp_path):
+    """A world of one NCCL rank: ``dp_train_step`` against
+    ``train_step`` (the forward's loss, PSNR and densify counts equal;
+    the backward sums with atomics in no fixed order, so the state is
+    held to ``chip_smoke``'s 5e-4 of each field's largest), and the three
+    slab paths at D = 1 against ``rasterize`` (color and depth equal,
+    alpha = 1 - (1 - alpha) within float32 rounding)."""
+    import torch.distributed as dist
+
+    from autovfx_tpu_torch.parallel import make_mesh
+    from autovfx_tpu_torch.parallel import sharding as S
+    from autovfx_tpu_torch.train import trainer as T
+
+    g, cam = scene
+    cfg = T.TrainConfig(raster=P.RasterConfig(dup_budget=1 << 16, tile=16),
+                        spatial_lr_scale=2.67)
+    target = torch.from_numpy(
+        np.random.default_rng(11).random((H, W, 3), np.float32)).cuda()
+    bg = torch.tensor([0.3, 0.2, 0.1], device="cuda")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), backend="nccl", device="cuda")
+        s_dp, a_dp = S.dp_train_step(T.init_state(g), cam, target, cfg, mesh)
+        s_seq, a_seq = T.train_step(T.init_state(g), cam, target, cfg)
+        assert torch.equal(a_dp.loss, a_seq.loss)
+        assert torch.equal(a_dp.psnr, a_seq.psnr)
+        assert torch.equal(s_dp.stats.denom, s_seq.stats.denom)
+        assert torch.equal(s_dp.stats.max_radii, s_seq.stats.max_radii)
+        for f in PARAM_FIELDS:
+            want = getattr(s_seq.gaussians, f)
+            err = (getattr(s_dp.gaussians, f) - want).abs().max().item()
+            assert err <= cs.STATE_TOL * want.abs().max().item(), f
+        with torch.no_grad():
+            ref = P.rasterize(g, cam, bg=bg,
+                              config=P.RasterConfig(dup_budget=1 << 16))
+            compact, ovf = S.shard_gaussians_compact(g, cam, 1, 0)
+            assert not bool(ovf)
+            built, ovf = S.distributed_shard_compact(
+                S.round_robin_store(g, 1, 0), cam, mesh)
+            assert not bool(ovf)
+            outs = [S.sharded_render(S.shard_gaussians(g, cam, 1, 0), cam,
+                                     mesh, P.RasterConfig(dup_budget=1 << 16),
+                                     bg),
+                    S.sharded_render_compact(compact, cam, mesh,
+                                             P.RasterConfig(dup_budget=1 << 16),
+                                             bg)]
+            # the distributed build reorders the splats: the blend's sums
+            # run in another order where depths tie
+            dist_out = S.sharded_render_compact(
+                built, cam, mesh, P.RasterConfig(dup_budget=1 << 16), bg)
+        for color, depth, alpha in outs:
+            assert torch.equal(color, ref.color)
+            assert torch.equal(depth, ref.depth)
+            assert (alpha - ref.alpha).abs().max().item() <= 1.2e-7
+        for got, want in zip(dist_out, (ref.color, ref.depth, ref.alpha)):
+            assert (got - want).abs().max().item() <= 1e-5
+    finally:
+        dist.destroy_process_group()

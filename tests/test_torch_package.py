@@ -232,7 +232,10 @@ def _entry_points():
     """The loaders and constructors that put tensors on a device."""
     from autovfx_tpu_torch import convert
     from autovfx_tpu_torch.core import cameras, ply_io
-    from autovfx_tpu_torch.dataset import colmap
+    from autovfx_tpu_torch.dataset import (
+        colmap, mono_normal, readers, trajectories,
+    )
+    from autovfx_tpu_torch.parallel import dryrun, launch
     from autovfx_tpu_torch.perception import lama
     from autovfx_tpu_torch.physics import shapes, world
     from autovfx_tpu_torch.render import clip, emitter, ibl, meshsplat, preview
@@ -277,6 +280,13 @@ def _entry_points():
         "garden_camera": synthetic.garden_camera,
         "DensifyStats.zero": densify.DensifyStats.zero,
         "colmap_to_cameras": colmap.colmap_to_cameras,
+        "to_cameras": readers.to_cameras,
+        "half_sphere_trajectory": trajectories.half_sphere_trajectory,
+        "lemniscate_trajectory": trajectories.lemniscate_trajectory,
+        "get_mono_normals": mono_normal.get_mono_normals,
+        "convert.slabs": convert.slabs,
+        "spawn": launch.spawn,
+        "dryrun_multichip": dryrun.dryrun_multichip,
         "bind_to_mesh": refine.bind_to_mesh,
         "convert.bound_gaussians": convert.bound_gaussians,
         "poisson_reconstruct": poisson.poisson_reconstruct,
@@ -296,6 +306,7 @@ def _calls(tmp_path):
     """Each entry point's call with no device named, on inputs made on
     the CPU."""
     import dataclasses
+    import operator
 
     import numpy as np
     import torch
@@ -382,6 +393,14 @@ def _calls(tmp_path):
                     for f in dataclasses.fields(bound)}
     cloud = np.random.default_rng(0).standard_normal((40, 3)).astype(
         np.float32)
+    from autovfx_tpu_torch.dataset import mono_normal, readers
+
+    dataset_cams = readers.DatasetCameras(
+        ["a.png"], np.eye(4)[None, :3], np.diag([20.0, 20.0, 1.0]),
+        np.array([24, 16]))
+    mono_normal.save_normal_map(
+        mono_normal.normal_map_path(str(views), "00000.png"),
+        np.ones((16, 24, 3)) / np.sqrt(3.0))
     return {
         "load_lama_params": lambda: fns["load_lama_params"](lama_ckpt).out_w,
         "convert_torch_state_dict": lambda: fns["convert_torch_state_dict"](
@@ -438,6 +457,17 @@ def _calls(tmp_path):
         "garden_camera": lambda: fns["garden_camera"](24, 16),
         "DensifyStats.zero": lambda: fns["DensifyStats.zero"](20),
         "colmap_to_cameras": lambda: fns["colmap_to_cameras"](sparse),
+        "to_cameras": lambda: fns["to_cameras"](dataset_cams),
+        "half_sphere_trajectory": lambda: fns["half_sphere_trajectory"](
+            [0, 0, 0], 1.0, 0.5, 3, width=24, height_px=16),
+        "lemniscate_trajectory": lambda: fns["lemniscate_trajectory"](
+            [0, 0, 0], 1.0, 0.5, 3, width=24),
+        "get_mono_normals": lambda: fns["get_mono_normals"](
+            ["00000.png"], str(views)),
+        "convert.slabs": lambda: fns["convert.slabs"](
+            {k: v[None] for k, v in g_arrays.items()}, 0),
+        "spawn": lambda: fns["spawn"](1, operator.add, backend="gloo"),
+        "dryrun_multichip": lambda: fns["dryrun_multichip"](1),
         "bind_to_mesh": lambda: fns["bind_to_mesh"](
             mesh_io.Mesh(corners, tri)),
         "convert.bound_gaussians": lambda: fns["convert.bound_gaussians"](
@@ -454,7 +484,7 @@ HOST_RESULTS = ("prefilter_envmap_ggx", "build_init_points",
                 "ray_mesh_init_points", "inpaint_with_params",
                 "training_3DGS_for_inpainting", "render_asset_previews",
                 "render_trajectory", "poisson_reconstruct",
-                "remove_outliers")
+                "remove_outliers", "spawn", "dryrun_multichip")
 
 
 def _tensors(x):
@@ -533,3 +563,28 @@ def test_reconstruction_cli_defaults_to_the_card(tmp_path):
         return
     with pytest.raises(RuntimeError, match='device="cpu"'):
         train_gaussians.main(argv)
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("train_at_scale", ["--splats", "200", "--iters", "1", "--width", "16",
+                        "--height", "12", "--views", "2"]),
+    ("utils.lpips_weights", ["--vgg16", "v.pth", "--lpips", "l.pth",
+                             "--out", "w.npz"]),
+])
+def test_tools_default_to_the_card(module, argv, tmp_path, monkeypatch):
+    """``python -m autovfx_tpu_torch.train_at_scale`` and ``...utils.
+    lpips_weights``: ``--device`` defaults to the card; without one, the
+    tool raises an error that names the remedy before it reads or
+    writes anything."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module("autovfx_tpu_torch." + module)
+    assert mod.get_args(argv).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mod.main(argv)
+    assert os.listdir(tmp_path) == []
