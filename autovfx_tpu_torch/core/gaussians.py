@@ -116,7 +116,7 @@ class Gaussians:
         rotation, opacity ``initial_opacity``."""
         n, dev = xyz.shape[0], xyz.device
         f32 = torch.float32
-        k = (sh_degree + 1) ** 2
+        k = sh_lib.num_sh_coeffs(sh_degree)
         if rgb is None:
             rgb = torch.full((n, 3), 0.5, dtype=f32, device=dev)
         if initial_scale is None:

@@ -27,6 +27,10 @@ C3 = (
 )
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Evaluate SH of bands 0..degree at unit directions.
 
@@ -77,3 +81,7 @@ def sh_to_rgb(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     """RGB -> DC SH coefficient."""
     return (rgb - 0.5) / C0
+
+
+def sh_from_rgb(rgb: torch.Tensor) -> torch.Tensor:  # alias
+    return rgb_to_sh(rgb)

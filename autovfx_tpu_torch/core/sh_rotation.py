@@ -28,7 +28,7 @@ def _fibonacci_dirs(n: int = 64) -> np.ndarray:
 def _basis(dirs: np.ndarray, degree: int = 3) -> np.ndarray:
     """(D, K) real SH basis in ``core.sh.eval_sh``'s convention: row k
     of the identity as the coefficients."""
-    k = (degree + 1) ** 2
+    k = sh_lib.num_sh_coeffs(degree)
     d = len(dirs)
     coeffs = torch.eye(k)[:, None, :, None].expand(k, d, k, 3)
     dirs_t = torch.tensor(np.asarray(dirs, np.float32))
@@ -38,7 +38,7 @@ def _basis(dirs: np.ndarray, degree: int = 3) -> np.ndarray:
 
 def sh_rotation_matrix(rot: np.ndarray, degree: int = 3) -> np.ndarray:
     """(K, K) matrix M with c' = M @ c for world rotation ``rot``."""
-    dirs = _fibonacci_dirs(4 * (degree + 1) ** 2)
+    dirs = _fibonacci_dirs(4 * sh_lib.num_sh_coeffs(degree))
     b = _basis(dirs, degree)
     b_rot = _basis(dirs @ rot, degree)  # rows: Y(R^-1 d) = Y(d @ R)
     m, *_ = np.linalg.lstsq(b, b_rot, rcond=None)

@@ -50,6 +50,35 @@ def make_gaussians(
     )
 
 
+def make_scene(
+    n: int = 1000,
+    width: int = 64,
+    height: int = 48,
+    seed: int = 0,
+    fx: float | None = None,
+    cam_dist: float = 4.0,
+    device=devices.DEFAULT,
+) -> tuple[Gaussians, Camera]:
+    """``n`` Gaussians of ``make_gaussians`` (drawn from
+    ``default_rng(seed)``) and a camera ``cam_dist`` from the origin
+    looking at it (focal 0.9 × ``width`` unless given)."""
+    device = devices.resolve(device)
+    g = make_gaussians(n, np.random.default_rng(seed), device=device)
+    if fx is None:
+        fx = 0.9 * width
+    cam = look_at_camera(
+        eye=[cam_dist, 0.6, 0.8],
+        target=[0.0, 0.0, 0.0],
+        up=[0.0, 0.0, 1.0],
+        fx=fx,
+        fy=fx,
+        width=width,
+        height=height,
+        device=device,
+    )
+    return g, cam
+
+
 def make_garden_like(
     n: int = 3_000_000, seed: int = 0, extent: float = 3.0,
     device=devices.DEFAULT,

@@ -3,7 +3,7 @@
 training, the edited frame, its effects, a panorama, an edit program
 and a removal program through the port's edit entry, the SuGaR
 reconstruction through the port's CLI, the multi-device layer, the
-dataset tooling and the from-scratch trainer.
+dataset tooling, the from-scratch trainer and the bench.
 
 Run from the root of a checkout, with no arguments:
 
@@ -126,9 +126,15 @@ in (never JAX, never ``autovfx_tpu``) and
 16. runs ``python -m autovfx_tpu_torch.train_at_scale``'s ``main`` at
     300,000 splats, 1296×840 and 24 views for 300 steps: its launches,
     and its final PSNR above its start's;
-17. times the physics substep and the edited clip's replay (last: the
+17. runs the port's bench, ``python -m autovfx_tpu_torch.bench``, in
+    every mode at once (``BENCH_MODE=all``) and at the JAX package's
+    bench.py defaults, in a subprocess (``bench_point``): its exit, its
+    last line's keys (finite, positive), the SuGaR mesh within its vertex
+    target and nearer the level than uniform points, and each stage's
+    kernel launches; its lines are re-printed here;
+18. times the physics substep and the edited clip's replay (last: the
     profiler's sessions after its long one lose records);
-18. puts each kernel's time on each path beside its bound (``bound``:
+19. puts each kernel's time on each path beside its bound (``bound``:
     the least time the card could take, from the bytes and operations
     that path's inputs need, ``*_work``) and their ratio, the share.
 
@@ -203,7 +209,7 @@ CUBE_FACES = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
                        [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
                        [1, 5, 7], [1, 7, 3]], np.int64)
 EDIT_SURFELS = 50_000
-ENV_H, ENV_W, EDIT_LIGHTS, SHADOW_SCALE = 32, 64, 16, 2
+SHADOW_SCALE = 2
 PHYSICS_SUBSTEPS = 64  # timed in one go
 PHYSICS_PROFILED = 8  # substeps in the profiler's session
 # the resting cube spans ~200 × 200 pixels of the last ring view; a
@@ -215,7 +221,6 @@ OBJECT_PIXELS_MIN = 2000
 # edited frame's scene, ring, drop and surfels with a 96³ smoke/fire
 # volume over the clip and the cube's surfels melting
 SMOKE_RES = 96
-SMOKE_ORIGIN, SMOKE_EXTENT = (-2.0, -2.0, -0.2), 4.0  # the domain, m
 SMOKE_TIMED = 8  # steps timed in one go
 # pixels that must differ by > 0.05 from the frame without the volume
 EFFECTS_PIXELS_MIN = 10
@@ -986,18 +991,6 @@ def small_checks(P) -> None:
 # ---- operating point ---------------------------------------------------------
 
 
-def ring_cameras():
-    from autovfx_tpu_torch.core.cameras import look_at_camera
-
-    return [
-        look_at_camera([2.6 * np.cos(a), 2.6 * np.sin(a), 1.4],
-                       [0.0, 0.0, 0.2], [0.0, 0.0, 1.0],
-                       fx=960.98 * WIDTH / 1296.0, fy=963.15 * WIDTH / 1296.0,
-                       width=WIDTH, height=HEIGHT, device=DEVICE)
-        for a in np.linspace(0, 2 * np.pi, N_CAMS, endpoint=False)
-    ]
-
-
 def load_scene():
     from autovfx_tpu_torch.core import ply_io
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
@@ -1012,18 +1005,6 @@ def load_scene():
     print(f"scene: {g.capacity} splats through a {size / 2**20:.1f} MiB PLY "
           f"in {time.perf_counter() - t0:.1f} s")
     return g
-
-
-def counters(ops) -> dict:
-    """Launches per wrapper; kernel 3's two entries apart."""
-    return {
-        "preprocess": ops.preprocess_cuda.launches,
-        "duplicate_with_keys": ops.fill_cuda.launches,
-        "blend_fwd": ops.blend_cuda.launches,
-        "blend_fwd_train": ops.blend_cuda.train_launches,
-        "blend_bwd": ops.blend_cuda.bwd_launches,
-        "preprocess_bwd": ops.preprocess_cuda.bwd_launches,
-    }
 
 
 def reset_counters(ops) -> None:
@@ -1043,9 +1024,11 @@ def check_launches(launches: dict, want: dict, what: str) -> None:
 
 
 def operating_point(P, card: str) -> list[dict]:
+    from autovfx_tpu_torch import bench
+
     ops = P.ops
     g = load_scene()
-    cams = ring_cameras()
+    cams = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
     worst = max(int(ops.binning.required_budget(
         ops.preprocess_cuda.preprocess(g, c, tile=TILE))) for c in cams)
     budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
@@ -1058,7 +1041,7 @@ def operating_point(P, card: str) -> list[dict]:
     reset_counters(ops)
     frames = [P.rasterize(g, c, bg=bg, config=config) for c in cams]
     sync()
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     check_launches(launches, {"preprocess": N_CAMS,
                               "duplicate_with_keys": N_CAMS,
                               "blend_fwd": N_CAMS}, f"{N_CAMS} frames")
@@ -1386,11 +1369,12 @@ def training_setup(P):
     """The training point: the ring, the target scene, the config (the
     novel view's budget sizing, with room for densify to fill the
     capacity), the target's renders and the perturbed start."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.train import trainer
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
     ops = P.ops
-    cams = ring_cameras()
+    cams = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
     t0 = time.perf_counter()
     target = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
     worst = max(int(ops.binning.required_budget(
@@ -1408,6 +1392,7 @@ def training_setup(P):
 
 
 def training_point(P, card: str):
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.train import losses, trainer
 
     ops = P.ops
@@ -1429,7 +1414,7 @@ def training_point(P, card: str):
         overflow |= aux.overflow
         step_loss.append(aux.loss)
     sync()
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     loss30 = camera0_loss(P, losses, state.gaussians, cams[0], images[0], cfg)
     n_before = int(state.gaussians.num_active)
     sync()
@@ -1442,7 +1427,7 @@ def training_point(P, card: str):
         overflow |= aux.overflow
         step_loss.append(aux.loss)
     sync()
-    launches = {k: n + launches[k] for k, n in counters(ops).items()}
+    launches = {k: n + launches[k] for k, n in bench.kernel_launches().items()}
     steps = TRAIN_STEPS + AFTER_DENSIFY_STEPS
     check_launches(launches, {k: steps for k in (
         "preprocess", "duplicate_with_keys", "blend_fwd_train", "blend_bwd",
@@ -1612,25 +1597,6 @@ def train_timing(P, card, state, cams, images, cfg) -> tuple[dict, dict]:
 # ---- edited-frame operating point --------------------------------------------
 
 
-def cube_world(P):
-    """The JAX package's bench.py:139-165 drop: a 0.6 m cube at z = 1.5
-    over a ground quad at z = 0.3 (restitution 0.4); (world, corners)."""
-    from autovfx_tpu_torch.physics import solver, world
-
-    corners = np.array([[x, y, z] for x in (-0.3, 0.3) for y in (-0.3, 0.3)
-                        for z in (-0.3, 0.3)], np.float32)
-    ground_v = np.array([[-5, -5, GROUND_Z], [5, -5, GROUND_Z],
-                         [5, 5, GROUND_Z], [-5, 5, GROUND_Z]], np.float32)
-    ground_f = np.array([[0, 1, 2], [0, 2, 3]], np.int64)
-    objects = [{"pos": [0.0, 0.0, 1.5], "scale": 1.0,
-                "rigid_body": {"rb_type": "ACTIVE", "mass": 1.0,
-                               "restitution": 0.4}}]
-    w = world.RigidWorld.from_objects(
-        objects, [corners], scene_vertices=ground_v, scene_faces=ground_f,
-        cfg=solver.SolverConfig(), device=DEVICE)
-    return w, corners
-
-
 def no_syncs(fn, what: str) -> None:
     """Run ``fn`` with PyTorch's sync debug mode on; fail if any of its
     operations waited on the card (a copy to the host, ``.item()``, a
@@ -1662,11 +1628,10 @@ def edit_inputs(P, g, cams):
     surfels of the cube, the seed-0 32×64 envmap, 16 lights; and a
     function that builds them again with effects keywords
     (``smoke_traj``, ``melt``)."""
-    from autovfx_tpu_torch.core.cameras import stack_cameras
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.physics import world
-    from autovfx_tpu_torch.render import clip, meshsplat
 
-    w, corners = cube_world(P)
+    w, corners = bench.cube_world(DEVICE)
     _, pos, quat = world.simulate(w, N_CAMS)
     _, pos2, quat2 = world.simulate(w, N_CAMS)
     check(np.array_equal(pos, pos2) and np.array_equal(quat, quat2),
@@ -1675,20 +1640,11 @@ def edit_inputs(P, g, cams):
     check(z[-1] < z[0] - 0.5, f"the cube did not fall: z {z}")
     check(z.min() > GROUND_Z + 0.3 - w.cfg.collision_margin,
           f"the cube went through the ground: z {z}")
-    traj_pos, traj_rot = world.origin_trajectory(w, pos, quat)
-    surf = meshsplat.sample_mesh_surfels(corners, CUBE_FACES,
-                                         num_samples=EDIT_SURFELS,
-                                         device=DEVICE)
-    env = (0.4 + 0.6 * np.random.RandomState(0).rand(ENV_H, ENV_W, 3)
-           ).astype(np.float32)
+    traj = world.origin_trajectory(w, pos, quat)
+    surf = bench.cube_surfels(corners, EDIT_SURFELS, DEVICE)
 
     def build(**effects):
-        return clip.build_clip_inputs(
-            bg=g, cams=stack_cameras(cams),
-            objects=[{"scale": 1.0, "material": {"rgb": [0.8, 0.2, 0.2]}}],
-            surfels=[surf], traj_pos=traj_pos, traj_rot=traj_rot,
-            hull_shape=w.shape, env=env, num_lights=EDIT_LIGHTS,
-            device=DEVICE, **effects)
+        return bench.clip_inputs(g, cams, w, surf, traj, DEVICE, **effects)
 
     inp = build()
     print(f"edit: the cube's COM z over {N_CAMS} frames "
@@ -1759,19 +1715,20 @@ def edit_stages(P, inp, i, config):
 def edited_frame_point(P, card: str) -> tuple[dict, dict, dict, dict]:
     """The edited frame at the operating point of the JAX package's
     bench.py:344-422 (config 4), through ``render_clip(fused=True)``."""
+    from autovfx_tpu_torch import bench
+    from autovfx_tpu_torch.ops.rasterize import preprocess_sets
     from autovfx_tpu_torch.physics import solver
     from autovfx_tpu_torch.render import clip
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
     ops = P.ops
-    cams = ring_cameras()
+    cams = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
     g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
     w, inp, build = edit_inputs(P, g, cams)
     worst = 0
     for i, cam in enumerate(cams):
         g_obj = clip.shaded_object_gaussians(inp, i, cam)
-        s = P.ops.rasterize.preprocess_sets([g, g_obj], cam,
-                                            P.RasterConfig(tile=TILE))
+        s = preprocess_sets([g, g_obj], cam, P.RasterConfig(tile=TILE))
         worst = max(worst, int(ops.binning.required_budget(s)))
     budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
     config = P.RasterConfig(dup_budget=budget, tile=TILE)
@@ -1782,7 +1739,7 @@ def edited_frame_point(P, card: str) -> tuple[dict, dict, dict, dict]:
     reset_counters(ops)
     frames = clip.render_clip(inp, N_CAMS, config, fused=True)
     sync()
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     check_launches(launches, {"preprocess": 2 * N_CAMS,
                               "duplicate_with_keys": N_CAMS,
                               "blend_fwd": N_CAMS}, f"{N_CAMS} edited frames")
@@ -1930,25 +1887,6 @@ def edited_frame_point(P, card: str) -> tuple[dict, dict, dict, dict]:
 # ---- effects-frame operating point -------------------------------------------
 
 
-def smoke_config(resolution: int | None = None):
-    """The JAX package's bench.py:430-433 smoke (``SMOKE_RES`` cells a
-    side unless given): fire on, a 30-frame dissolve."""
-    from autovfx_tpu_torch.render import smoke
-
-    return smoke.SmokeConfig(resolution=resolution or SMOKE_RES,
-                             dt=1.0 / 15.0,
-                             with_fire=True, dissolve_speed=30)
-
-
-def smoke_inflow(cfg, device):
-    """The bench's emitter: a sphere of 0.06 R cells at (R/2, R/2, R/6)."""
-    from autovfx_tpu_torch.render import smoke
-
-    r = cfg.resolution
-    return smoke.sphere_inflow(cfg, [r // 2, r // 2, r // 6], 0.06 * r,
-                               device=device)
-
-
 def fields_close(got, want, what: str, tol: float = FIELD_TOL,
                  share: float = FIELD_SHARE) -> float:
     """Each field of ``got`` against ``want`` (NamedTuples of tensors, on
@@ -1978,10 +1916,11 @@ def card_against_cpu(P) -> dict:
     LPIPS on two 128×128 images, and LaMa at big-lama's widths on one
     128×96 image (the card's cuFFT and cuDNN against the CPU's).
     Returns each case's largest error."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.render import liquid, smoke
     from autovfx_tpu_torch.utils import lpips
 
-    cfg = smoke_config(PARITY_SMOKE_RES)
+    cfg = bench.smoke_config(PARITY_SMOKE_RES)
     err = {}
     for adaptive in (False, True):
         # the adaptive case's emitter sits off the bench's cell R/2: a
@@ -1990,7 +1929,7 @@ def card_against_cpu(P) -> dict:
         # float sum decides
         mask = lambda dev: (smoke.sphere_inflow(
             cfg, PARITY_ADAPTIVE_CENTER, 0.06 * cfg.resolution, device=dev)
-            if adaptive else smoke_inflow(cfg, dev))
+            if adaptive else bench.smoke_inflow(cfg, dev))
         out = {dev: smoke.simulate_smoke(cfg, mask(dev), PARITY_SMOKE_FRAMES,
                                          adaptive=adaptive)
                for dev in (DEVICE, "cpu")}
@@ -2071,24 +2010,24 @@ def effects_inputs(P, card: str, inp, build):
     volume of ``N_CAMS`` frames, the cube's surfels (object-local, as the
     bench passes them) melting linearly over the clip; the clip's inputs
     with both, and their times."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.render import liquid, smoke
 
-    cfg = smoke_config()
-    mask = smoke_inflow(cfg, DEVICE)
+    cfg = bench.smoke_config(SMOKE_RES)
+    mask = bench.smoke_inflow(cfg, DEVICE)
     states = smoke.simulate_smoke(cfg, mask, N_CAMS)
     for x in states:
         check(bool(torch.isfinite(x).all()), "smoke: not finite")
     check(states.density[-1].max().item() > 0.5, "smoke: no density")
-    prog = np.clip(np.arange(N_CAMS, dtype=np.float32) / max(N_CAMS - 1, 1),
-                   0.0, 1.0)
+    prog = bench.melt_progress(N_CAMS)
     sim = liquid.MeltSim(inp.surf_points.cpu().numpy(), device=DEVICE)
     mf = sim.run(prog)
     for x in mf:
         check(bool(torch.isfinite(x).all()), "melt: not finite")
     check(mf.tracer_fluid[-1].mean().item() == 1.0, "melt: not all melted")
     inp_fx = build(
-        smoke_traj=(states, np.array(SMOKE_ORIGIN, np.float32), SMOKE_EXTENT,
-                    cfg),
+        smoke_traj=(states, np.array(bench.SMOKE_ORIGIN, np.float32),
+                    bench.SMOKE_EXTENT, cfg),
         melt=dict(pos=mf.tracer_pos, norm=mf.tracer_norm,
                   mask=np.ones(inp.surf_points.shape[0], bool)))
     step_ms = cuda_ms(lambda: smoke.simulate_smoke(cfg, mask, SMOKE_TIMED),
@@ -2211,6 +2150,8 @@ def effects_frame_point(P, card: str, edit: dict):
     """The effects frame at the operating point of the JAX package's
     bench.py:424-481 on the edited frame's scene, ring, drop and surfels,
     through ``render_clip(fused=True, smoke_cfg=...)``."""
+    from autovfx_tpu_torch import bench
+    from autovfx_tpu_torch.ops.rasterize import preprocess_sets
     from autovfx_tpu_torch.render import clip, liquid, smoke
 
     ops = P.ops
@@ -2221,8 +2162,8 @@ def effects_frame_point(P, card: str, edit: dict):
     for i, cam in enumerate(cams):
         g_obj = clip.shaded_object_gaussians(inp_fx, i, cam)
         g_smoke, g_fire = clip.smoke_gaussians(inp_fx, i, cfg)
-        s = ops.rasterize.preprocess_sets([g, g_obj, g_smoke], cam,
-                                          P.RasterConfig(tile=TILE))
+        s = preprocess_sets([g, g_obj, g_smoke], cam,
+                            P.RasterConfig(tile=TILE))
         worst = max(worst, int(ops.binning.required_budget(s)))
         fire_worst = max(fire_worst, int(ops.binning.required_budget(
             ops.preprocess_cuda.preprocess(g_fire, cam, tile=TILE))))
@@ -2244,7 +2185,7 @@ def effects_frame_point(P, card: str, edit: dict):
     frames = clip.render_clip(inp_fx, N_CAMS, config, fused=True,
                               smoke_cfg=cfg)
     sync()
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     check_launches(launches, {"preprocess": 4 * N_CAMS,
                               "duplicate_with_keys": 2 * N_CAMS,
                               "blend_fwd": 2 * N_CAMS},
@@ -2425,6 +2366,7 @@ def panorama_point(P, card: str, g) -> tuple[dict, dict]:
     """``render_panorama`` of the bench scene from inside its clutter at
     face 512: six faces through kernels 1-3, counted; the first face's
     kernels against their plain versions."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.render import panorama
 
     ops = P.ops
@@ -2440,7 +2382,7 @@ def panorama_point(P, card: str, g) -> tuple[dict, dict]:
                                     face_size=PANORAMA_FACE,
                                     out_height=PANORAMA_FACE, config=config)
     wall = time.perf_counter() - t0
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     n = len(panorama.FACES)
     check_launches(launches, {"preprocess": n, "duplicate_with_keys": n,
                               "blend_fwd": n}, "the panorama")
@@ -2479,7 +2421,9 @@ def panorama_point(P, card: str, g) -> tuple[dict, dict]:
 def table_frame():
     """The table's center (x, y) and the unit vectors along (ahead) and
     across (side) camera 0's view on the ground."""
-    cam0 = ring_cameras()[0]
+    from autovfx_tpu_torch import bench
+
+    cam0 = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)[0]
     eye = cam0.center.cpu().numpy().astype(np.float64)
     ahead = -eye[:2] / np.linalg.norm(eye[:2])  # the ring looks inward
     return eye[:2] + TABLE_AHEAD * ahead, ahead, np.array([-ahead[1],
@@ -2592,6 +2536,7 @@ def edit_program_files(P, root: str) -> dict:
     ring's trajectory, the cube, the table's DEVA masks (its splats alone
     through each ring view on the card, alpha > 0.4, as PNGs) and the
     program."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.core import cameras, ply_io
     from autovfx_tpu_torch.core.gaussians import merge
     from autovfx_tpu_torch.edit import mesh_io
@@ -2618,7 +2563,8 @@ def edit_program_files(P, root: str) -> dict:
     corners = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
                         for z in (-0.5, 0.5)], np.float32)
     mesh_io.save_obj(cube, mesh_io.Mesh(corners, CUBE_FACES))
-    cams = cameras.stack_cameras(ring_cameras())
+    cams = cameras.stack_cameras(
+        bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE))
     cameras.save_custom_trajectory(
         os.path.join(root, "custom_camera_path", "ring.json"), cams)
     masks = os.path.join(root, "cache", "tracking", "table", "1")
@@ -2709,7 +2655,7 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
     counted; then its results checked."""
     import random
 
-    from autovfx_tpu_torch import edit_scene
+    from autovfx_tpu_torch import bench, edit_scene
     from autovfx_tpu_torch.core import ply_io
     from autovfx_tpu_torch.core.cameras import index_camera
     from autovfx_tpu_torch.core.quaternion import euler_to_rotmat
@@ -2734,14 +2680,15 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
                         for z in (-1, 1)], np.float32) * CUBE_HALF
     need = lambda x, c: int(ops.binning.required_budget(
         ops.preprocess_cuda.preprocess(x, c, tile=EDIT_TILE)))
-    worst = max(need(g, c) for c in ring_cameras())
+    ring = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
+    worst = max(need(g, c) for c in ring)
     for land in landings:
         surf = meshsplat.sample_mesh_surfels(
             corners + land + [0, 0, CUBE_HALF], CUBE_FACES, 60_000,
             device=DEVICE)
         cube = meshsplat.surfels_to_gaussians(
             surf["points"], surf["normals"], surf["colors"], surf["radius"])
-        worst = max(worst, max(need(cube, c) for c in ring_cameras()))
+        worst = max(worst, max(need(cube, c) for c in ring))
     budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
     del g, surf, cube
     print(f"edit program duplicates: worst view {worst}, budget {budget}")
@@ -2802,7 +2749,7 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
             setattr(scene_cls, k, fn)
         edit_utils.detect_object, lmp.LMP.__call__ = saved_detect, saved_call
     wall = time.perf_counter() - t0
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     st = clock.stages
     # physics runs inside render_scene, detect inside the program
@@ -3153,7 +3100,7 @@ def removal_program_point(P, card: str) -> tuple[dict, dict]:
     then its results are checked."""
     import random
 
-    from autovfx_tpu_torch import edit_scene
+    from autovfx_tpu_torch import bench, edit_scene
     from autovfx_tpu_torch.core import ply_io
     from autovfx_tpu_torch.core.cameras import index_camera
     from autovfx_tpu_torch.core.quaternion import euler_to_rotmat
@@ -3178,7 +3125,8 @@ def removal_program_point(P, card: str) -> tuple[dict, dict]:
     need = lambda x, c: int(ops.binning.required_budget(
         ops.preprocess_cuda.preprocess(x, c, tile=EDIT_TILE)))
     g = ply_io.load_ply(files["ply"], device=DEVICE)
-    worst = max(need(g, c) for c in ring_cameras())
+    ring = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
+    worst = max(need(g, c) for c in ring)
     v, f = icosphere()
     center, ahead, _ = table_frame()
     center = np.append(center + BALL_AWAY * ahead, BALL_SIZE / 2)
@@ -3187,7 +3135,7 @@ def removal_program_point(P, card: str) -> tuple[dict, dict]:
         + center, f, 60_000, device=DEVICE)
     ball_g = meshsplat.surfels_to_gaussians(
         surf["points"], surf["normals"], surf["colors"], surf["radius"])
-    worst_ball = max(need(ball_g, c) for c in ring_cameras())
+    worst_ball = max(need(ball_g, c) for c in ring)
     budget = ops.binning.round_budget(max(1.5 * worst, worst_ball),
                                       slack=BUDGET_SLACK)
     del g, surf, ball_g
@@ -3302,7 +3250,7 @@ def removal_program_point(P, card: str) -> tuple[dict, dict]:
             else:
                 os.environ[k] = v
     wall = time.perf_counter() - t0
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     st = clock.stages
     for outer, inner in (("program", "detect+extract"), ("program", "remove"),
@@ -3606,6 +3554,7 @@ def sugar_scene_files(P, root: str) -> int:
     at tile 16 as PNGs.  Returns the CLI's duplicate budget: the worst
     ring view of the scene and of the Gaussians the CLI starts from, with
     the training point's headroom."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.train.trainer import init_gaussians_from_points
     from autovfx_tpu_torch.utils import png
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
@@ -3613,7 +3562,7 @@ def sugar_scene_files(P, root: str) -> int:
     ops = P.ops
     t0 = time.perf_counter()
     g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
-    cams = ring_cameras()
+    cams = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
     rgb = torch.clamp(g.sh_dc * SH_C0 + 0.5, 0.0, 1.0)
     rgb8 = torch.round(rgb * 255.0).to(torch.uint8)
     start = init_gaussians_from_points(g.xyz, rgb8.float() / 255.0)
@@ -3654,25 +3603,6 @@ def rms_to_levelset(P, g, verts: np.ndarray, level: float) -> float:
         nbrs = D.reset_neighbors(g, k=16)[_nearest_gaussian(sel, g)]
         dens = D.compute_density(sel, nbrs, g).cpu().numpy()
     return float(np.sqrt(np.mean((np.clip(dens, 0, 1) - level) ** 2))), len(sel)
-
-
-@contextlib.contextmanager
-def overflow_watch(ops):
-    """Within it, every ``binning.bin_splats`` call ORs its overflow flag
-    into the yielded dict's ``"any"`` (a device bool: no sync)."""
-    real = ops.binning.bin_splats
-    seen = {"any": torch.zeros((), dtype=torch.bool, device=DEVICE)}
-
-    def bin_splats(*a, **k):
-        out = real(*a, **k)
-        seen["any"] = seen["any"] | out.overflow
-        return out
-
-    ops.binning.bin_splats = bin_splats
-    try:
-        yield seen
-    finally:
-        ops.binning.bin_splats = real
 
 
 def counted_renders(clock: StageClock, owners) -> list:
@@ -3782,6 +3712,7 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
     3DGS and coarse step's launches, loss and (coarse) time, the stages'
     wall times and the forward renders recorded; the files, states,
     losses, launches, the mesh and its level-set RMS checked."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch import train_gaussians as TG
     from autovfx_tpu_torch.core import ply_io
     from autovfx_tpu_torch.sugar import coarse_train as CT
@@ -3821,22 +3752,22 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
     real_train_step, real_coarse_step = (f for _, _, f in saved[:2])
 
     def train_step(*a, **k):
-        before = counters(ops)
+        before = bench.kernel_launches()
         state, aux = real_train_step(*a, **k)
         seen["train"].append(({n: c - before[n] for n, c in
-                               counters(ops).items()}, aux.loss))
+                               bench.kernel_launches().items()}, aux.loss))
         return state, aux
 
     def coarse_step(state, cam, image, cfg, regularize, generator,
                     draws=None):
-        before = counters(ops)
+        before = bench.kernel_launches()
         sync()
         t0 = time.perf_counter()
         out = real_coarse_step(state, cam, image, cfg, regularize, generator,
                                draws)
         sync()
         seen["coarse"].append((regularize, {n: c - before[n] for n, c in
-                                            counters(ops).items()},
+                                            bench.kernel_launches().items()},
                                time.perf_counter() - t0, out[1].loss))
         seen["last"] = (cam, image, cfg, generator)
         return out
@@ -3857,7 +3788,7 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
     wall = time.perf_counter() - t0
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     peak = torch.cuda.max_memory_allocated()
 
     # the files, the states, the losses
@@ -3948,6 +3879,7 @@ def sugar_refine(P, card: str, run: dict, rng) -> tuple[dict, dict]:
     (its launches checked), then kernels 1-3, the preprocess backward and
     kernel 4 on the refined Gaussians against their plain versions at the
     refinement's budget."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.core.cameras import index_camera, num_cameras
     from autovfx_tpu_torch.sugar import refine as R
     from autovfx_tpu_torch.sugar import refine_train as RT
@@ -3971,7 +3903,7 @@ def sugar_refine(P, card: str, run: dict, rng) -> tuple[dict, dict]:
     refined, hist = RT.refine_train(bound, cams, images, rcfg, log_every=1)
     sync()
     refine_s = time.perf_counter() - t0
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     check_launches(launches, {k: REFINE_STEPS for k in TRAIN_LIKE},
                    f"{REFINE_STEPS} refine steps")
     for f in R.PARAM_KEYS:
@@ -4014,6 +3946,7 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
     them overflowing; then a regularized step's device time by
     operation, and the kernels against their plain versions on that
     step's own inputs and on a ring view of the coarse Gaussians."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.sugar import coarse_train as CT
     from autovfx_tpu_torch.sugar import extract_mesh as EM
     from autovfx_tpu_torch.sugar import levelset as LS
@@ -4023,7 +3956,7 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
     rng = np.random.default_rng(16)
     tmp = tempfile.TemporaryDirectory()
     budget = sugar_scene_files(P, tmp.name)
-    with overflow_watch(ops) as overflow:
+    with bench.overflow_watch(DEVICE) as overflow:
         run = sugar_cli(P, card, tmp.name, budget)
         refine_launches, err = sugar_refine(P, card, run, rng)
         # the extractions the CLI does not run, on the coarse Gaussians
@@ -4046,7 +3979,7 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
             finally:
                 for owner, attr, fn in saved:
                     setattr(owner, attr, fn)
-            side[method] = counters(ops)
+            side[method] = bench.kernel_launches()
             n = clock.renders
             check_launches(side[method], {"preprocess": n,
                                           "duplicate_with_keys": n,
@@ -4334,6 +4267,7 @@ def check_dp_state(state, ref, what: str) -> tuple[float, int, int]:
 
 def one_nccl_rank(P, card, cams, target, cfg, images, start) -> tuple:
     """The paths over one NCCL rank against the single-device ones."""
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.core.cameras import stack_cameras
     from autovfx_tpu_torch.parallel import make_mesh
     from autovfx_tpu_torch.parallel import mesh as M
@@ -4369,7 +4303,7 @@ def one_nccl_rank(P, card, cams, target, cfg, images, start) -> tuple:
     (s_dp, a_dp, full, comp, dist_out, frames, reshards, c_ovf,
      d_ovf) = paths()
     sync()
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     check_launches(launches, slab_paths_launches(N_CAMS),
                    "multi-device, one NCCL rank")
 
@@ -4443,6 +4377,8 @@ def multi_device_rank(rank: int, world: int, spec: dict) -> dict:
     each path counted and its peak memory read with only its own inputs
     held; rank 0 also takes the DP reference.  The rank runs at the
     parent's operating point (``spec["constants"]``)."""
+    from autovfx_tpu_torch import bench
+
     globals().update(spec["constants"])
     P = import_port()
     from autovfx_tpu_torch.core.cameras import stack_cameras
@@ -4459,7 +4395,7 @@ def multi_device_rank(rank: int, world: int, spec: dict) -> dict:
     peak = lambda: torch.cuda.max_memory_allocated() if on_card else 0
     reset_peak = (torch.cuda.reset_peak_memory_stats if on_card
                   else lambda: None)
-    cams = ring_cameras()
+    cams = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
     target = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=dev)
     cfg = trainer.TrainConfig(raster=P.RasterConfig(
         dup_budget=spec["budget"], tile=TILE), spatial_lr_scale=EXTENT)
@@ -4469,14 +4405,14 @@ def multi_device_rank(rank: int, world: int, spec: dict) -> dict:
     bg = torch.tensor([0.3, 0.2, 0.1], device=dev)
     c = MD_DP_CAMERAS[rank]
     out = {"peaks": {}, "ms": {}}
-    launches = dict.fromkeys(counters(ops), 0)
+    launches = dict.fromkeys(bench.kernel_launches(), 0)
 
     def counted(fn):
         sync_any()
         reset_counters(ops)
         r = fn()
         sync_any()
-        for k, n in counters(ops).items():
+        for k, n in bench.kernel_launches().items():
             launches[k] += n
         return r
 
@@ -4734,6 +4670,7 @@ def ray_hits_f64(origin, dirs, verts, faces):
 
 
 def dataset_tools_point(P, card: str) -> dict:
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch.core import cameras as C
     from autovfx_tpu_torch.core.quaternion import rotmat_to_quat
     from autovfx_tpu_torch.dataset import alignment, mono_normal, readers
@@ -4754,7 +4691,7 @@ def dataset_tools_point(P, card: str) -> dict:
         seconds[name] = time.perf_counter() - t0
 
     g = make_garden_like(N_SPLATS, seed=0, extent=EXTENT, device=DEVICE)
-    cams = ring_cameras()
+    cams = bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)
     rgb8 = torch.round(torch.clamp(g.sh_dc * SH_C0 + 0.5, 0, 1) * 255).to(
         torch.uint8)
     with tempfile.TemporaryDirectory() as root:
@@ -4894,7 +4831,7 @@ def dataset_tools_point(P, card: str) -> dict:
             frames = [P.rasterize(g, C.index_camera(back, i), config=tconfig)
                       for i in range(TRAJ_FRAMES)]
             sync()
-        launches = counters(ops)
+        launches = bench.kernel_launches()
     renders = 2 * N_CAMS + TRAJ_FRAMES  # depths, the disc's, the orbit
     check_launches(launches, {  # and a preprocess to size each budget
         "preprocess": renders + N_CAMS + TRAJ_FRAMES,
@@ -4933,6 +4870,7 @@ SCALE_SPLATS, SCALE_VIEWS, SCALE_ITERS = 300_000, 24, 300
 
 
 def train_at_scale_point(P, card: str) -> dict:
+    from autovfx_tpu_torch import bench
     from autovfx_tpu_torch import train_at_scale as TS
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
@@ -4953,7 +4891,7 @@ def train_at_scale_point(P, card: str) -> dict:
     result = TS.main(args)
     sync()
     wall = time.perf_counter() - t0
-    launches = counters(ops)
+    launches = bench.kernel_launches()
     renders = 2 * SCALE_VIEWS  # the ground truth and the final PSNR
     check_launches(launches, {
         "preprocess": renders + SCALE_ITERS,
@@ -4969,6 +4907,93 @@ def train_at_scale_point(P, card: str) -> dict:
           f"{result['final_psnr']} dB, {result['active_splats']} active; "
           f"the call {wall:.1f} s wall: ok")
     return path_counts(launches)
+
+
+# ---- the port's bench -------------------------------------------------------
+
+BENCH_TIMEOUT_S = 900
+FORWARD = ("preprocess", "duplicate_with_keys", "blend_fwd")
+# the kernels each stage of the bench runs (and no others)
+BENCH_STAGE_KERNELS = {"novel view": FORWARD, "edited frame": FORWARD,
+                       "physics": (), "effects frame": FORWARD,
+                       "replay": FORWARD, "train": TRAIN_LIKE,
+                       "sugar": FORWARD}
+BENCH_KEYS = ("value", "vs_baseline", "dup_budget", "novel_view_fps",
+              "physics_steps_per_sec", "edit_effects_fps", "smoke_res",
+              "edit_replay_fps", "edit_replay_wall_s", "train_iters_per_sec",
+              "sugar_extract_seconds", "sugar_vertices",
+              "sugar_rms_to_levelset")
+
+
+def bench_point(P, card: str) -> dict:
+    """``python -m autovfx_tpu_torch.bench`` in a subprocess, in every mode
+    at once (``BENCH_MODE=all``) and at the JAX package's bench.py
+    defaults: its exit, every key of its last line finite and positive,
+    the SuGaR mesh within its vertex target and nearer the level than
+    as many uniform points in the foreground box, and each stage's kernel
+    launches (its ``#`` lines); its lines re-printed here.  Returns the
+    run's launches by kernel."""
+    from autovfx_tpu_torch import bench
+    from autovfx_tpu_torch.core.cameras import stack_cameras
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_MODE"] = "all"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "autovfx_tpu_torch.bench"],
+                       cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = r.stdout.splitlines()
+    for line in out:
+        print(f"bench: {line}")
+    check(r.returncode == 0 and out, f"the bench exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    last = json.loads(out[-1])
+    for k in BENCH_KEYS:
+        check(k in last and np.isfinite(last[k]) and last[k] > 0,
+              f"the bench's last line: {k} = {last.get(k)}")
+    defaults = bench.Settings()
+    check(last["smoke_res"] == defaults.smoke_res
+          and last["sugar_vertices"] <= defaults.sugar_verts,
+          f"the bench's sizes: {last}")
+    # the level set's RMS against uniform points in the foreground box
+    # (PERF.md §2), as many as the statistic read of the mesh
+    g = make_garden_like(defaults.gaussians, seed=0, extent=defaults.extent,
+                         device=DEVICE)
+    v = last["sugar_vertices"]
+    n_sel = len(range(0, v, max(v // bench.RMS_VERTICES, 1)))
+    centers = stack_cameras(
+        bench.ring_cameras(WIDTH, HEIGHT, N_CAMS, DEVICE)).center.cpu().numpy()
+    c_ext = np.maximum(centers.max(0) - centers.min(0), 0.5)
+    mid = (centers.min(0) + centers.max(0)) / 2
+    box = np.random.default_rng(7).uniform(mid - 1.05 * c_ext,
+                                           mid + 1.05 * c_ext, (n_sel, 3))
+    rms_box = bench.rms_to_levelset(g, box)
+    check(last["sugar_rms_to_levelset"] < rms_box,
+          f"the bench's sugar_rms_to_levelset {last['sugar_rms_to_levelset']}"
+          f" is not below the foreground box's uniform points' {rms_box:.4f}")
+    # each stage's launches: its own kernels, each at least once
+    stages = {}
+    for line in out:
+        m = re.match(r"# (.+?): .* launches (\{.*\})$", line)
+        if m:
+            stages[m.group(1)] = json.loads(m.group(2))
+    check(set(stages) == set(BENCH_STAGE_KERNELS),
+          f"the bench's stages: {sorted(stages)}")
+    launches = dict.fromkeys(KERNELS, 0)
+    for name, counts in stages.items():
+        for k, n in counts.items():
+            check((n > 0) == (k in BENCH_STAGE_KERNELS[name]),
+                  f"the bench's {name}: {k} launched {n} times")
+        for k, n in path_counts(counts).items():
+            launches[k] += n
+    print(f"[{card}] the bench (python -m autovfx_tpu_torch.bench, "
+          f"BENCH_MODE=all, bench.py's defaults): rc 0 in {wall:.1f} s; "
+          f"every key finite and positive; sugar_rms_to_levelset "
+          f"{last['sugar_rms_to_levelset']} below uniform points' "
+          f"{rms_box:.4f} ({n_sel}); launches by stage {stages}: ok")
+    return launches
 
 
 def physics_point(P, card: str, w, inp, config) -> None:
@@ -5052,6 +5077,7 @@ def main() -> None:
     md_launches, md_err = multi_device_point(P, card)
     dataset_launches = dataset_tools_point(P, card)
     scale_launches = train_at_scale_point(P, card)
+    bench_launches = bench_point(P, card)
     physics_point(P, card, edit["w"], edit["inp"], edit["config"])
     for part in (train_err, edit_err, fx_err, pano_err, program_err,
                  removal_err, sugar_err, md_err):
@@ -5075,7 +5101,8 @@ def main() -> None:
                    "sugar_pipeline": sugar_launches[k],
                    "multi_device": md_launches[k],
                    "dataset_tools": dataset_launches[k],
-                   "train_at_scale": scale_launches[k]}
+                   "train_at_scale": scale_launches[k],
+                   "bench": bench_launches[k]}
         main = perf[k][MAIN_PATH[k]]
         kernels.append(dict(
             name=k, route="cuda", **KERNELS[k],

@@ -37,7 +37,8 @@ from autovfx_tpu.ops.rasterize import rasterize as j_rasterize
 from autovfx_tpu.render import clip as JCL
 from autovfx_tpu_torch import convert
 from autovfx_tpu_torch.core.cameras import index_camera
-from autovfx_tpu_torch.ops import rasterize as Rz
+from autovfx_tpu_torch.ops.rasterize import (RasterConfig, rasterize,
+                                             rasterize_multi)
 from autovfx_tpu_torch.render import clip as CL
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -81,7 +82,7 @@ def port_inputs(inp):
 
 
 def port_config(cfg):
-    return Rz.RasterConfig(dup_budget=cfg.dup_budget, tile=cfg.tile)
+    return RasterConfig(dup_budget=cfg.dup_budget, tile=cfg.tile)
 
 
 @pytest.fixture(scope="module")
@@ -112,7 +113,7 @@ def test_rasterize_multi_matches_jax_ref_of_the_concatenated_set(clip):
     want = j_rasterize(j_merge(inp.bg, g_obj), JC.index_camera(inp.cams, 0),
                        config=cfg.replace(backend="ref"))
     cam = index_camera(pin.cams, 0)
-    got = Rz.rasterize_multi(
+    got = rasterize_multi(
         [pin.bg, CL.shaded_object_gaussians(pin, 0, cam)], cam, config=pcfg)
     assert not bool(got.overflow)
     assert psnr(got.color.numpy(), want.color) > 70.0
@@ -130,8 +131,8 @@ def test_rasterize_multi_is_rasterize_of_the_merged_set(clip):
 
     cam = index_camera(pin.cams, 1)
     g_obj = CL.shaded_object_gaussians(pin, 1, cam)
-    a = Rz.rasterize_multi([pin.bg, g_obj], cam, config=pcfg)
-    b = Rz.rasterize(merge(pin.bg, g_obj), cam, config=pcfg)
+    a = rasterize_multi([pin.bg, g_obj], cam, config=pcfg)
+    b = rasterize(merge(pin.bg, g_obj), cam, config=pcfg)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -176,7 +177,7 @@ def test_fused_frame_matches_own_multipass(clip):
 def test_fused_frame_shows_object_and_shadow(clip, port_fused):
     _, _, pin, pcfg = clip
     cam = index_camera(pin.cams, 0)
-    bg_only = Rz.rasterize(pin.bg, cam, config=pcfg).color.clamp(0, 1)
+    bg_only = rasterize(pin.bg, cam, config=pcfg).color.clamp(0, 1)
     diff = np.abs(port_fused - bg_only.numpy()).max(-1)
     assert (diff > 0.1).sum() > 20
 

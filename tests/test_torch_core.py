@@ -284,3 +284,93 @@ def test_camera_matrices_match_jax():
                                        rtol=1e-7)
     batch = C.stack_cameras([cam, cam])
     assert batch.c2w.shape == (2, 4, 4) and batch.K.shape == (2, 3, 3)
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_num_sh_coeffs_matches_jax(degree):
+    assert SH.num_sh_coeffs(degree) == JSH.num_sh_coeffs(degree)
+
+
+def test_sh_from_rgb_matches_jax():
+    rgb = np.random.default_rng(3).random((50, 3), dtype=np.float32)
+    got = SH.sh_from_rgb(torch.tensor(rgb))
+    close(got, JSH.sh_from_rgb(jnp.asarray(rgb)))
+    assert torch.equal(got, SH.rgb_to_sh(torch.tensor(rgb)))
+
+
+@pytest.mark.parametrize("kw", [{}, {"fx": 30.0, "cam_dist": 3.0}])
+def test_make_scene_matches_jax(kw):
+    """The camera equals JAX's within 1e-6; the Gaussians (numpy's draws,
+    not JAX's) have JAX's shapes, dtypes and value ranges."""
+    g, cam = S.make_scene(n=300, width=40, height=30, seed=2, device="cpu",
+                          **kw)
+    jg, jcam = JS.make_scene(n=300, width=40, height=30, key=2, **kw)
+    assert (cam.width, cam.height) == (jcam.width, jcam.height)
+    for f in convert.CAMERA_FIELDS:
+        if f not in ("width", "height"):
+            close(getattr(cam, f), getattr(jcam, f), rtol=0, atol=1e-6)
+    for f in convert.GAUSSIAN_FIELDS:
+        a, b = getattr(g, f).numpy(), np.asarray(getattr(jg, f))
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+    assert bool(g.active.all())
+    rgb = g.sh_dc.numpy() * SH.C0 + 0.5
+    assert rgb.min() >= -1e-6 and rgb.max() <= 1 + 1e-6
+    scales = np.exp(g.log_scales.numpy())
+    assert scales.min() >= 0.01 - 1e-7 and scales.max() <= 0.08 + 1e-7
+    op = torch.sigmoid(g.opacity_logit).numpy()
+    assert op.min() >= 0.2 - 1e-6 and op.max() <= 0.95 + 1e-6
+    np.testing.assert_allclose(np.linalg.norm(g.quats.numpy(), axis=-1), 1.0,
+                               atol=1e-6)
+    assert np.abs(g.sh_rest.numpy()).max() < 0.05 * 6
+
+
+@pytest.mark.parametrize("pkg,module", [
+    ("core", None), ("ops", "rasterize"), ("physics", "world")])
+def test_subpackage_reexports_match_jax(pkg, module):
+    """The same ``__all__`` as the JAX package's, each name the very
+    object of the submodule that defines it."""
+    import importlib
+
+    port = importlib.import_module("autovfx_tpu_torch." + pkg)
+    ref = importlib.import_module("autovfx_tpu." + pkg)
+    assert port.__all__ == ref.__all__
+    homes = ({"Gaussians": G, "Camera": C} if module is None else
+             dict.fromkeys(port.__all__, importlib.import_module(
+                 f"autovfx_tpu_torch.{pkg}.{module}")))
+    for name in port.__all__:
+        assert getattr(port, name) is getattr(homes[name], name), name
+
+
+def test_rasterize_reexport_shadows_the_submodule_as_in_jax():
+    """``ops.rasterize`` is the re-exported function, in both packages, so
+    ``import autovfx_tpu_torch.ops.rasterize as R`` binds the function,
+    not the module: code that needs the module's other names imports them
+    from it (``from autovfx_tpu_torch.ops.rasterize import ...``), and no
+    module of the port, test of it or ``chip_smoke.py`` takes the alias."""
+    import importlib
+    import pathlib
+    import re
+    import sys
+
+    import autovfx_tpu.ops.rasterize as JR  # noqa: F401
+    import autovfx_tpu_torch.ops.rasterize as R
+    from autovfx_tpu_torch.ops.rasterize import (RasterConfig,
+                                                 preprocess_sets, rasterize,
+                                                 rasterize_multi, render)
+
+    module = sys.modules["autovfx_tpu_torch.ops.rasterize"]
+    assert R is rasterize is module.rasterize
+    assert JR is sys.modules["autovfx_tpu.ops.rasterize"].rasterize
+    assert importlib.import_module("autovfx_tpu_torch.ops.rasterize") is module
+    for f in (RasterConfig, preprocess_sets, rasterize_multi, render):
+        assert getattr(module, f.__name__) is f
+    root = pathlib.Path(__file__).resolve().parents[1]
+    alias = re.compile(r"import autovfx_tpu_torch\.ops\.rasterize as|"
+                       r"from autovfx_tpu_torch\.ops import [^\n]*\brasterize"
+                       r" as")
+    files = [*(root / "autovfx_tpu_torch").rglob("*.py"),
+             root / "chip_smoke.py", *(root / "tests").glob("test_torch_*.py")]
+    takers = [str(p.relative_to(root)) for p in files
+              if p != pathlib.Path(__file__).resolve()
+              and alias.search(p.read_text())]
+    assert not takers, takers

@@ -28,6 +28,7 @@ import torch
 
 import autovfx_tpu_torch as P
 import chip_smoke as cs
+from autovfx_tpu_torch import bench
 from autovfx_tpu_torch.core.cameras import look_at_camera
 from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS
 from autovfx_tpu_torch.ops import (
@@ -97,9 +98,9 @@ def test_rasterize_matches_plain_path(scene, tile):
     g, cam = scene
     cfg = P.RasterConfig(dup_budget=1 << 16, tile=tile)
     bg = torch.tensor([0.1, 0.2, 0.3], device=g.xyz.device)
-    before = cs.counters(P.ops)
+    before = bench.kernel_launches()
     out = P.rasterize(g, cam, bg=bg, config=cfg)
-    after = cs.counters(P.ops)
+    after = bench.kernel_launches()
     forward = ("preprocess", "duplicate_with_keys", "blend_fwd")
     assert all(after[k] == before[k] + (k in forward) for k in after), (
         before, after)  # once each, and no backward kernel
@@ -371,9 +372,9 @@ def test_train_step_matches_cpu(scene):
                         spatial_lr_scale=2.67)
     target = torch.from_numpy(
         np.random.default_rng(10).random((H, W, 3), np.float32))
-    before = cs.counters(P.ops)
+    before = bench.kernel_launches()
     s_gpu, aux_gpu = T.train_step(T.init_state(g), cam, target.cuda(), cfg)
-    after = cs.counters(P.ops)
+    after = bench.kernel_launches()
     assert all(after[k] == before[k] + (k != "blend_fwd") for k in after), (
         before, after)  # once each; kernel 3 only as its training variant
     s_cpu, aux_cpu = T.train_step(T.init_state(_cpu(g)), _cpu(cam), target,
@@ -459,7 +460,7 @@ def test_physics_on_the_card_matches_the_cpu(dev):
         saved = cs.DEVICE
         cs.DEVICE = device
         try:
-            return cs.cube_world(P)[0]
+            return bench.cube_world(cs.DEVICE)[0]
         finally:
             cs.DEVICE = saved
 

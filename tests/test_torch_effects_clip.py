@@ -36,7 +36,7 @@ from autovfx_tpu.ops import preprocess_pallas as PP
 from autovfx_tpu.render import clip as JCL
 from autovfx_tpu.render import smoke as JSMK
 from autovfx_tpu_torch.core.cameras import index_camera
-from autovfx_tpu_torch.ops import rasterize as Rz
+from autovfx_tpu_torch.ops.rasterize import rasterize, rasterize_multi
 from autovfx_tpu_torch.render import clip as CL
 from autovfx_tpu_torch.render import smoke as SMK
 
@@ -169,9 +169,9 @@ def test_fire_pass_is_added(clip, port_frames):
     cam = index_camera(inp.cams, 1)
     g_smoke, g_fire = CL.smoke_gaussians(inp, 1, cfg)
     assert CL.fire_config(pcfg).dup_budget == min(pcfg.dup_budget, 1 << 18)
-    fire = Rz.rasterize(g_fire, cam, config=CL.fire_config(pcfg))
+    fire = rasterize(g_fire, cam, config=CL.fire_config(pcfg))
     assert not bool(fire.overflow) and float(fire.alpha.max()) > 0.05
-    out = Rz.rasterize_multi(
+    out = rasterize_multi(
         [inp.bg, CL.shaded_object_gaussians(inp, 1, cam), g_smoke], cam,
         config=pcfg)
     alpha = out.alpha.clamp(0.0, 1.0)

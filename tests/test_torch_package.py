@@ -277,6 +277,7 @@ def _entry_points():
         "look_at_camera": cameras.look_at_camera,
         "make_gaussians": synthetic.make_gaussians,
         "make_garden_like": synthetic.make_garden_like,
+        "make_scene": synthetic.make_scene,
         "garden_camera": synthetic.garden_camera,
         "DensifyStats.zero": densify.DensifyStats.zero,
         "colmap_to_cameras": colmap.colmap_to_cameras,
@@ -454,6 +455,7 @@ def _calls(tmp_path):
         "make_gaussians": lambda: fns["make_gaussians"](
             20, np.random.default_rng(0)),
         "make_garden_like": lambda: fns["make_garden_like"](30),
+        "make_scene": lambda: fns["make_scene"](20, 24, 16),
         "garden_camera": lambda: fns["garden_camera"](24, 16),
         "DensifyStats.zero": lambda: fns["DensifyStats.zero"](20),
         "colmap_to_cameras": lambda: fns["colmap_to_cameras"](sparse),
@@ -570,16 +572,18 @@ def test_reconstruction_cli_defaults_to_the_card(tmp_path):
                         "--height", "12", "--views", "2"]),
     ("utils.lpips_weights", ["--vgg16", "v.pth", "--lpips", "l.pth",
                              "--out", "w.npz"]),
+    ("bench", []),
 ])
 def test_tools_default_to_the_card(module, argv, tmp_path, monkeypatch):
-    """``python -m autovfx_tpu_torch.train_at_scale`` and ``...utils.
-    lpips_weights``: ``--device`` defaults to the card; without one, the
-    tool raises an error that names the remedy before it reads or
-    writes anything."""
+    """``python -m autovfx_tpu_torch.train_at_scale``, ``...utils.
+    lpips_weights`` and ``...bench``: ``--device`` defaults to the card;
+    without one, the tool raises an error that names the remedy before
+    it reads or writes anything."""
     import importlib
 
     import torch
 
+    monkeypatch.delenv("BENCH_DEVICE", raising=False)
     mod = importlib.import_module("autovfx_tpu_torch." + module)
     assert mod.get_args(argv).device == "cuda"
     if torch.cuda.is_available():

@@ -325,3 +325,54 @@ def test_a_failing_rank_raises_with_its_traceback():
     with pytest.raises(RuntimeError, match="rank 1 failed"):
         launch.spawn(2, torch_parallel_ranks.fail_on_rank_1, (),
                      backend="gloo", device="cpu")
+
+
+def one_rank_build(rank: int, world: int, inp: dict) -> dict:
+    """The rank side of the D = 1 pin (torch and the port only): the
+    distributed build of the store and its composite, and the single
+    render of the same scene."""
+    import torch
+
+    from autovfx_tpu_torch.ops.rasterize import RasterConfig as PConfig
+    from autovfx_tpu_torch.ops.rasterize import rasterize as p_rasterize
+    from autovfx_tpu_torch.parallel.mesh import make_mesh
+
+    config = PConfig(dup_budget=inp["budget"])
+    g = convert.gaussians(inp["scene"], device="cpu")
+    cam = convert.camera(inp["cam"], device="cpu")
+    bg = torch.from_numpy(inp["bg"])
+    mesh = make_mesh((1, 1), backend="gloo", device="cpu")
+    built, ovf = S.distributed_shard_compact(
+        S.round_robin_store(g, world, rank), cam, mesh, slack=inp["slack"])
+    color, depth, alpha = S.sharded_render_compact(built, cam, mesh, config,
+                                                   bg)
+    want = p_rasterize(g, cam, bg=bg, config=config)
+    return {"overflow": bool(ovf), "active": int(built.active.sum()),
+            "got": (color.numpy(), depth.numpy(), alpha.numpy()),
+            "want": (want.color.numpy(), want.depth.numpy(),
+                     want.alpha.numpy())}
+
+
+def test_distributed_build_at_one_rank_where_the_reference_raises():
+    """At D = 1 the reference's window, ``cap_pair`` = ⌈1.3 M⌉ rounded up
+    to 8 rows (``autovfx_tpu/parallel/sharding.py:497-498``), is longer
+    than the store, and its ``dynamic_slice`` refuses it; the port pads
+    the sorted rows up to the window, so its build plus render is the
+    single ``rasterize`` (alpha as 1 - (1 - alpha): within 1.2e-7)."""
+    scene, cam = make_scene(n=64, width=32, height=24, key=3)
+    bg = jnp.array([0.3, 0.2, 0.1])
+    mesh = j_make_mesh((1, 1), devices=jax.devices()[:1])
+    store = JS.round_robin_store(scene, 1)
+    with pytest.raises(TypeError, match="slice_sizes"):
+        jax.jit(lambda st: JS.distributed_shard_compact(
+            st, cam, mesh, slack=0.6))(store)
+
+    inp = {"budget": CFG.dup_budget, "scene": g_arrays(scene),
+           "cam": cam_arrays(cam), "bg": np.asarray(bg), "slack": 0.6}
+    (out,) = launch.spawn(1, one_rank_build, (inp,), backend="gloo",
+                          device="cpu")
+    assert out["overflow"] is False and out["active"] == 64
+    (color, depth, alpha), (w_color, w_depth, w_alpha) = out["got"], out["want"]
+    np.testing.assert_array_equal(color, w_color)
+    np.testing.assert_array_equal(depth, w_depth)
+    np.testing.assert_allclose(alpha, w_alpha, rtol=0, atol=1.2e-7)

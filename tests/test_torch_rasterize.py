@@ -27,7 +27,7 @@ from autovfx_tpu.ops.rasterize import rasterize as j_rasterize
 from autovfx_tpu.ops.rasterize import render as j_render
 from autovfx_tpu.utils.synthetic import make_garden_like
 from autovfx_tpu_torch import convert
-from autovfx_tpu_torch.ops import rasterize as Rz
+from autovfx_tpu_torch.ops.rasterize import RasterConfig, rasterize, render
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -67,7 +67,7 @@ def scene():
 @pytest.fixture(scope="module")
 def port_out(scene):
     _, _, gt, ct = scene
-    return Rz.rasterize(gt, ct, config=Rz.RasterConfig(dup_budget=1 << 17))
+    return rasterize(gt, ct, config=RasterConfig(dup_budget=1 << 17))
 
 
 def psnr(a, b):
@@ -95,7 +95,7 @@ def test_live_jax_ref_backend(scene, tile):
     bg = np.array([0.2, 0.5, 0.9], np.float32)
     ref = j_rasterize(g, cam, bg=bg, config=JConfig(
         dup_budget=1 << 17, backend="ref", tile=tile, chunk=256))
-    out = Rz.rasterize(gt, ct, bg=torch.from_numpy(bg), config=Rz.RasterConfig(
+    out = rasterize(gt, ct, bg=torch.from_numpy(bg), config=RasterConfig(
         dup_budget=1 << 17, tile=tile))
     assert psnr(out.color.numpy(), ref.color) > 90.0
     assert np.abs(out.alpha.numpy() - np.asarray(ref.alpha)).max() < 1e-4
@@ -113,7 +113,7 @@ def test_jax_fused_bf16_path(scene, port_out):
 def test_render_rgba_and_normal(scene):
     g, cam, gt, ct = scene
     ref = j_render(g, cam, config=JConfig(dup_budget=1 << 17, backend="ref"))
-    out = Rz.render(gt, ct, config=Rz.RasterConfig(dup_budget=1 << 17))
+    out = render(gt, ct, config=RasterConfig(dup_budget=1 << 17))
     assert psnr(out.rgba.numpy(), ref.rgba) > 60.0
     assert psnr(out.normal.numpy(), ref.normal) > 60.0
     assert out.rgba.shape == (96, 128, 4)
@@ -123,7 +123,7 @@ def test_mean2d_offset_belongs_to_training(scene, port_out):
     """The densification hook of the training path: a zero offset
     renders exactly as none (its gradients are tested with training)."""
     _, _, gt, ct = scene
-    out = Rz.rasterize(gt, ct, config=Rz.RasterConfig(dup_budget=1 << 17),
+    out = rasterize(gt, ct, config=RasterConfig(dup_budget=1 << 17),
                        mean2d_offset=torch.zeros(gt.capacity, 2))
     for a, b in zip(out, port_out):
         assert torch.equal(a, b)
