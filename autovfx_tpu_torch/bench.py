@@ -397,17 +397,18 @@ def overflow_watch(device):
         binning.bin_splats = real
 
 
-def kernel_launches() -> dict:
-    """The kernel wrappers' launch counts (they count launches on the card
-    only), kernel 3's two entries apart."""
-    from autovfx_tpu_torch.ops import blend_cuda, fill_cuda, preprocess_cuda
+KERNELS = ("preprocess", "duplicate_with_keys", "blend_fwd",
+           "blend_fwd_train", "blend_bwd", "preprocess_bwd")
 
-    return {"preprocess": preprocess_cuda.launches,
-            "duplicate_with_keys": fill_cuda.launches,
-            "blend_fwd": blend_cuda.launches,
-            "blend_fwd_train": blend_cuda.train_launches,
-            "blend_bwd": blend_cuda.bwd_launches,
-            "preprocess_bwd": preprocess_cuda.bwd_launches}
+
+def kernel_launches() -> dict:
+    """The kernel wrappers' launch counts (``trace``'s ``launch.<kernel>``
+    counters; they count launches on the card only), kernel 3's two
+    entries apart."""
+    from autovfx_tpu_torch.utils import trace
+
+    counts = trace.counters()
+    return {k: counts.get(f"launch.{k}", 0) for k in KERNELS}
 
 
 @contextlib.contextmanager

@@ -30,6 +30,7 @@ import torch
 
 from autovfx_tpu_torch.ops import fill_cuda
 from autovfx_tpu_torch.ops.projection import TILE, Splats2D, num_tiles
+from autovfx_tpu_torch.utils import trace
 
 
 class BinnedSplats(NamedTuple):
@@ -91,7 +92,8 @@ def bin_splats(
     tile: int = TILE,
 ) -> BinnedSplats:
     """Bin a view's splats into tiles with a fixed ``dup_budget``-slot
-    allocation (no host sync)."""
+    allocation (no host sync).  Traced, the duplicates asked for and the
+    slots sorted are the counters ``raster.dups`` and ``raster.slots``."""
     if not 0 < dup_budget < 2**31:
         raise ValueError(
             f"dup_budget must be in (0, 2**31): gids and tile ranges are "
@@ -99,18 +101,23 @@ def bin_splats(
         )
     tiles_x, tiles_y = num_tiles(width, height, tile)
     n_tiles = tiles_x * tiles_y
-    keys, gids, total = expand_duplicates(splats, tiles_x, n_tiles,
-                                          dup_budget)
-    keys_s, gid_s = sort_duplicates(keys, gids)
-    return BinnedSplats(
-        gid=gid_s,
-        tile=(keys_s >> 32).to(torch.int32),
-        tile_range=tile_ranges(keys_s, n_tiles),
-        num_tiles_x=tiles_x,
-        num_tiles_y=tiles_y,
-        total_dups=total,
-        overflow=total > dup_budget,
-    )
+    with trace.span("raster.binning"):
+        keys, gids, total = expand_duplicates(splats, tiles_x, n_tiles,
+                                              dup_budget)
+        keys_s, gid_s = sort_duplicates(keys, gids)
+        binned = BinnedSplats(
+            gid=gid_s,
+            tile=(keys_s >> 32).to(torch.int32),
+            tile_range=tile_ranges(keys_s, n_tiles),
+            num_tiles_x=tiles_x,
+            num_tiles_y=tiles_y,
+            total_dups=total,
+            overflow=total > dup_budget,
+        )
+    trace.count_device("raster.dups", total)
+    if trace.enabled():
+        trace.count("raster.slots", dup_budget)
+    return binned
 
 
 def required_budget(splats: Splats2D) -> torch.Tensor:

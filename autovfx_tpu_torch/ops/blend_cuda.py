@@ -3,9 +3,7 @@ and its backward (``csrc/blend_bwd.cu``).
 
 A CUDA tensor goes through the kernels, or the call raises; a CPU tensor
 goes through the plain versions ``blend_ref.blend_tiles_ref`` and
-``blend_ref.blend_tiles_ref_bwd`` over every tile.  ``launches`` counts
-the launches of kernel 3's novel-view entry, ``train_launches`` those of
-its training variant and ``bwd_launches`` kernel 4's, and nothing else.
+``blend_ref.blend_tiles_ref_bwd`` over every tile.
 
 The images are in the JAX package's layout, color (H, W, 3), depth
 (H, W), alpha (H, W), without the background term.  ``blend`` is the
@@ -24,13 +22,10 @@ from autovfx_tpu_torch.ops._build import check_tensor
 from autovfx_tpu_torch.ops.binning import BinnedSplats
 from autovfx_tpu_torch.ops.blend_ref import SplatGrads
 from autovfx_tpu_torch.ops.projection import Splats2D
+from autovfx_tpu_torch.utils import trace
 
 TILES = (16, 32)  # tile edges the kernels are instantiated for
 GRAD_FIELDS = 10  # kernel 4's per-Gaussian row: mean2d 2, conic 3, op, rgb, d
-
-launches = 0
-train_launches = 0
-bwd_launches = 0
 
 
 class BlendState(NamedTuple):
@@ -94,7 +89,6 @@ def blend_kernel(
     binned: BinnedSplats, splats: Splats2D, width: int, height: int,
     tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    global launches
     n_tiles = _check_inputs(binned, splats, width, height, tile)
     dev = binned.gid.device
     color, depth, alpha = _images(width, height, dev)
@@ -107,7 +101,7 @@ def blend_kernel(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "blend_fwd")
-    launches += 1
+    trace.count("launch.blend_fwd")
     return color, depth, alpha
 
 
@@ -116,7 +110,6 @@ def blend_train_kernel(
     tile: int,
 ) -> tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], BlendState]:
     """Kernel 3's training variant: the images and the ``BlendState``."""
-    global train_launches
     n_tiles = _check_inputs(binned, splats, width, height, tile)
     dev = binned.gid.device
     color, depth, alpha = _images(width, height, dev)
@@ -134,7 +127,7 @@ def blend_train_kernel(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "blend_fwd_train")
-    train_launches += 1
+    trace.count("launch.blend_fwd_train")
     return (color, depth, alpha), state
 
 
@@ -148,7 +141,6 @@ def blend_bwd_kernel(
 ) -> SplatGrads:
     """Kernel 4: per-Gaussian gradients from the images' gradients and
     the forward's ``state`` (``blend_train_kernel``)."""
-    global bwd_launches
     n_tiles = _check_inputs(binned, splats, width, height, tile)
     f32 = torch.float32
     check_tensor(state.final_t, "final_t", f32, (height, width))
@@ -168,7 +160,7 @@ def blend_bwd_kernel(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "blend_bwd")
-    bwd_launches += 1
+    trace.count("launch.blend_bwd")
     return SplatGrads(mean2d=grad[:, 0:2], conic=grad[:, 2:5],
                       opacity=grad[:, 5], color=grad[:, 6:9],
                       depth=grad[:, 9])

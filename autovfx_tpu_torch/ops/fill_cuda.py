@@ -11,7 +11,6 @@ A CUDA tensor goes through the kernel, or the call raises; a CPU tensor
 goes through ``duplicate_with_keys_plain``, a ``repeat_interleave``
 expansion of the same map.  The kernel writes every slot below the
 budget, the sentinel ones too, so its buffers are allocated unfilled.
-``launches`` counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -19,8 +18,7 @@ import torch
 
 from autovfx_tpu_torch.ops import _build
 from autovfx_tpu_torch.ops._build import check_tensor
-
-launches = 0
+from autovfx_tpu_torch.utils import trace
 
 
 def depth_bits(depth: torch.Tensor) -> torch.Tensor:
@@ -50,7 +48,6 @@ def duplicate_with_keys_kernel(
     tiles_touched, starts, tile_min, tile_max, depth, tiles_x: int,
     n_tiles: int, budget: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    global launches
     n = tiles_touched.shape[0]
     check_tensor(tiles_touched, "tiles_touched", torch.int32, (n,))
     check_tensor(starts, "starts", torch.int64, (n,))
@@ -69,7 +66,7 @@ def duplicate_with_keys_kernel(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "duplicate_with_keys")
-    launches += 1
+    trace.count("launch.duplicate_with_keys")
     return keys, gids
 
 

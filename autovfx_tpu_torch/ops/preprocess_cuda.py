@@ -5,8 +5,6 @@ A CUDA tensor goes through the kernels, or the call raises; a CPU tensor
 goes through the plain versions: ``projection.preprocess`` and, for the
 backward, autograd of it (``preprocess_bwd_plain``).  ``PreprocessFn``
 joins the two into a ``torch.autograd.Function`` for the training path.
-``launches`` and ``bwd_launches`` count kernel launches and nothing
-else.
 """
 from __future__ import annotations
 
@@ -21,9 +19,7 @@ from autovfx_tpu_torch.ops import _build, projection
 from autovfx_tpu_torch.ops._build import check_rows, check_tensor
 from autovfx_tpu_torch.ops.blend_ref import SplatGrads
 from autovfx_tpu_torch.ops.projection import Splats2D
-
-launches = 0
-bwd_launches = 0
+from autovfx_tpu_torch.utils import trace
 
 
 class ParamGrads(NamedTuple):
@@ -109,7 +105,6 @@ def preprocess_kernel(
     mean2d_offset: Optional[torch.Tensor] = None,
     out: Optional[Splats2D] = None,
 ) -> Splats2D:
-    global launches
     n = g.capacity
     k_rest = g.sh_rest.shape[1]
     degree = _degree(g, sh_degree)
@@ -149,7 +144,7 @@ def preprocess_kernel(
             out.tiles_touched.data_ptr(), stream,
         )
     _build.check(lib, err, "preprocess_fwd")
-    launches += 1
+    trace.count("launch.preprocess")
     return out
 
 
@@ -222,7 +217,6 @@ def preprocess_bwd_kernel(
     ``tiles_touched`` carries the rect).  Each field of ``d`` is read at
     its own row stride, so column slices of one buffer (kernel 4's
     (N, 10) rows) need no copy."""
-    global bwd_launches
     n = g.capacity
     k_rest = g.sh_rest.shape[1]
     degree = _degree(g, sh_degree)
@@ -250,7 +244,7 @@ def preprocess_bwd_kernel(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "preprocess_bwd")
-    bwd_launches += 1
+    trace.count("launch.preprocess_bwd")
     if override_color is not None:
         out = out._replace(override_color=d.color)
     return out

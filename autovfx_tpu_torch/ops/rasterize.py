@@ -34,6 +34,7 @@ from autovfx_tpu_torch.core.cameras import Camera
 from autovfx_tpu_torch.core.gaussians import PARAM_FIELDS, Gaussians
 from autovfx_tpu_torch.ops import binning, blend_cuda, preprocess_cuda
 from autovfx_tpu_torch.ops.projection import Splats2D, empty_splats
+from autovfx_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,30 +77,31 @@ def rasterize(
     gradient, its gradient is the screen-space position gradient that
     densification reads.
     """
-    inputs = [getattr(g, f) for f in PARAM_FIELDS]
-    inputs += [t for t in (override_color, mean2d_offset) if t is not None]
-    differentiable = torch.is_grad_enabled() and any(
-        t.requires_grad for t in inputs)
-    pre, blend = ((preprocess_cuda.preprocess_differentiable,
-                   blend_cuda.blend_differentiable) if differentiable else
-                  (preprocess_cuda.preprocess, blend_cuda.blend))
-    splats = pre(
-        g, cam, scaling_modifier=config.scaling_modifier,
-        override_color=override_color, sh_degree=config.sh_degree,
-        tile=config.tile, mean2d_offset=mean2d_offset,
-    )
-    binned = binning.bin_splats(
-        splats, cam.width, cam.height, config.dup_budget, tile=config.tile
-    )
-    color, depth, alpha = blend(
-        binned, splats, cam.width, cam.height, config.tile
-    )
-    if bg is not None:
-        color = color + (1.0 - alpha)[..., None] * bg
-    return RenderOutput(
-        color=color, depth=depth, alpha=alpha, radii=splats.radius,
-        overflow=binned.overflow,
-    )
+    with trace.span("raster"):
+        inputs = [getattr(g, f) for f in PARAM_FIELDS]
+        inputs += [t for t in (override_color, mean2d_offset) if t is not None]
+        differentiable = torch.is_grad_enabled() and any(
+            t.requires_grad for t in inputs)
+        pre, blend = ((preprocess_cuda.preprocess_differentiable,
+                       blend_cuda.blend_differentiable) if differentiable else
+                      (preprocess_cuda.preprocess, blend_cuda.blend))
+        splats = pre(
+            g, cam, scaling_modifier=config.scaling_modifier,
+            override_color=override_color, sh_degree=config.sh_degree,
+            tile=config.tile, mean2d_offset=mean2d_offset,
+        )
+        binned = binning.bin_splats(
+            splats, cam.width, cam.height, config.dup_budget, tile=config.tile
+        )
+        color, depth, alpha = blend(
+            binned, splats, cam.width, cam.height, config.tile
+        )
+        if bg is not None:
+            color = color + (1.0 - alpha)[..., None] * bg
+        return RenderOutput(
+            color=color, depth=depth, alpha=alpha, radii=splats.radius,
+            overflow=binned.overflow,
+        )
 
 
 def preprocess_sets(
@@ -136,19 +138,20 @@ def rasterize_multi(
     blend over the joined splats (the same image as ``rasterize`` of the
     concatenated sets).  Not differentiable; ``radii`` are the joined
     sets'."""
-    splats = preprocess_sets(sets, cam, config)
-    binned = binning.bin_splats(
-        splats, cam.width, cam.height, config.dup_budget, tile=config.tile
-    )
-    color, depth, alpha = blend_cuda.blend(
-        binned, splats, cam.width, cam.height, config.tile
-    )
-    if bg is not None:
-        color = color + (1.0 - alpha)[..., None] * bg
-    return RenderOutput(
-        color=color, depth=depth, alpha=alpha, radii=splats.radius,
-        overflow=binned.overflow,
-    )
+    with trace.span("raster"):
+        splats = preprocess_sets(sets, cam, config)
+        binned = binning.bin_splats(
+            splats, cam.width, cam.height, config.dup_budget, tile=config.tile
+        )
+        color, depth, alpha = blend_cuda.blend(
+            binned, splats, cam.width, cam.height, config.tile
+        )
+        if bg is not None:
+            color = color + (1.0 - alpha)[..., None] * bg
+        return RenderOutput(
+            color=color, depth=depth, alpha=alpha, radii=splats.radius,
+            overflow=binned.overflow,
+        )
 
 
 class RenderDict(NamedTuple):

@@ -42,6 +42,7 @@ from autovfx_tpu_torch.render import ibl as RIBL
 from autovfx_tpu_torch.render import meshsplat as RMS
 from autovfx_tpu_torch.render import shadow as RSH
 from autovfx_tpu_torch.render import smoke as SMK
+from autovfx_tpu_torch.utils import trace
 from autovfx_tpu_torch.utils.gather import take
 
 DEPTH_ALPHA = 0.01  # coverage below which a pass has no depth (1e9)
@@ -357,25 +358,30 @@ def render_edited_frame_fused(
     (``fused_composite``).  The fire splats render alone, so that their
     own alpha decides their occlusion, and their color (premultiplied
     over black) is added to the frame."""
-    cam = index_camera(inp.cams, frame_idx)
-    sets = [inp.bg, shaded_object_gaussians(inp, frame_idx, cam)]
-    g_fire = None
-    if inp.smoke_density is not None:
-        g_smoke, g_fire = smoke_gaussians(inp, frame_idx, smoke_cfg)
-        sets.append(g_smoke)
-    out = rasterize_multi(sets, cam, config=config)
+    with trace.span("frame"):
+        cam = index_camera(inp.cams, frame_idx)
+        with trace.span("frame.shading"):
+            shaded = shaded_object_gaussians(inp, frame_idx, cam)
+        sets = [inp.bg, shaded]
+        g_fire = None
+        if inp.smoke_density is not None:
+            g_smoke, g_fire = smoke_gaussians(inp, frame_idx, smoke_cfg)
+            sets.append(g_smoke)
+        out = rasterize_multi(sets, cam, config=config)
 
-    alpha = torch.clamp(out.alpha, 0.0, 1.0)
-    scene_depth = pass_depth(out, alpha)
-    planes_w = world_hull_planes_at(inp, frame_idx)
-    w_obj = RSH.hull_object_weight(cam, scene_depth, planes_w, inp.hull_mask,
-                                   pad=object_pad(inp))
-    ratio = RSH.shadow_ratio_map(
-        cam, out.depth, torch.clamp(alpha, min=1e-3), inp.light_dirs,
-        inp.light_weights, planes_w, inp.hull_mask, scale=shadow_scale)
-    fire = (None if g_fire is None else
-            rasterize(g_fire, cam, config=fire_config(config)).color)
-    return fused_composite(out, ratio, w_obj, fire)
+        alpha = torch.clamp(out.alpha, 0.0, 1.0)
+        scene_depth = pass_depth(out, alpha)
+        with trace.span("frame.shadow"):
+            planes_w = world_hull_planes_at(inp, frame_idx)
+            w_obj = RSH.hull_object_weight(cam, scene_depth, planes_w,
+                                           inp.hull_mask, pad=object_pad(inp))
+            ratio = RSH.shadow_ratio_map(
+                cam, out.depth, torch.clamp(alpha, min=1e-3), inp.light_dirs,
+                inp.light_weights, planes_w, inp.hull_mask,
+                scale=shadow_scale)
+        fire = (None if g_fire is None else
+                rasterize(g_fire, cam, config=fire_config(config)).color)
+        return fused_composite(out, ratio, w_obj, fire)
 
 
 def render_clip(

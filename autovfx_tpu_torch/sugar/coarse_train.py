@@ -31,6 +31,7 @@ from autovfx_tpu_torch.core.gaussians import Gaussians
 from autovfx_tpu_torch.ops.rasterize import rasterize
 from autovfx_tpu_torch.sugar import regularization as REG
 from autovfx_tpu_torch.train import trainer as T
+from autovfx_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,15 +65,16 @@ def sugar_losses(
     if cfg.entropy_weight:
         loss = loss + cfg.entropy_weight * REG.opacity_entropy_loss(g)
     if regularize and cfg.sdf_weight:
-        samples = REG.sample_sdf_points(g, generator, cfg.n_sdf_samples,
-                                        draws=draws)
-        term = (REG.sdf_regularization_loss if cfg.sdf_mode == "sdf"
-                else REG.density_regularization_loss)
-        loss = loss + cfg.sdf_weight * term(g, samples, cam, out_depth,
-                                            out_alpha)
-        if cfg.normal_weight:
-            loss = loss + cfg.normal_weight * REG.normal_consistency_loss(
-                g, samples)
+        with trace.span("sugar.density"):
+            samples = REG.sample_sdf_points(g, generator, cfg.n_sdf_samples,
+                                            draws=draws)
+            term = (REG.sdf_regularization_loss if cfg.sdf_mode == "sdf"
+                    else REG.density_regularization_loss)
+            loss = loss + cfg.sdf_weight * term(g, samples, cam, out_depth,
+                                                out_alpha)
+            if cfg.normal_weight:
+                loss = loss + cfg.normal_weight * (
+                    REG.normal_consistency_loss(g, samples))
     return loss
 
 

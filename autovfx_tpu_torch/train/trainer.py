@@ -38,6 +38,7 @@ from autovfx_tpu_torch.train.densify import (
     densify_and_prune,
     reset_opacity,
 )
+from autovfx_tpu_torch.utils import trace
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-15
 
@@ -161,7 +162,8 @@ def compute_loss(
     bg = torch.zeros((3,), dtype=torch.float32, device=g.xyz.device)
     out = rasterize(g, cam, bg=bg, config=cfg.raster,
                     mean2d_offset=mean2d_offset)
-    loss = L.photometric_loss(out.color, gt_rgb, cfg.lambda_dssim)
+    with trace.span("step.loss"):
+        loss = L.photometric_loss(out.color, gt_rgb, cfg.lambda_dssim)
     if cfg.lambda_depth and gt_depth is not None:
         loss = loss + cfg.lambda_depth * L.depth_loss(
             out.depth, gt_depth, cfg.scene_scale)
@@ -223,7 +225,8 @@ def loss_and_grads(g: Gaussians, loss_fn):
         offset = torch.zeros((g.capacity, 2), dtype=torch.float32,
                              device=g.xyz.device, requires_grad=True)
         loss, aux = loss_fn(dataclasses.replace(g, **params), offset)
-        grads = torch.autograd.grad(loss, [*params.values(), offset])
+        with trace.span("step.backward"):
+            grads = torch.autograd.grad(loss, [*params.values(), offset])
     return loss.detach(), aux, dict(zip(PARAM_FIELDS, grads)), grads[-1]
 
 
@@ -233,13 +236,17 @@ def step_with_loss(state: TrainState, cam: Camera, cfg: TrainConfig,
     overflow, psnr)): its backward, Adam and the densify stats.  The
     state's tensors are updated in place; the returned state holds
     them."""
-    loss, (radii, overflow, psnr), grads, offset_grad = loss_and_grads(
-        state.gaussians, loss_fn)
-    g, adam = apply_adam(state.gaussians, state.adam, grads, state.step, cfg)
-    stats = state.stats.update(offset_grad, radii, cam.width, cam.height)
-    return (TrainState(gaussians=g, adam=adam, stats=stats,
-                       step=state.step + 1),
-            StepAux(loss=loss, psnr=psnr.detach(), overflow=overflow))
+    with trace.span("step"):
+        loss, (radii, overflow, psnr), grads, offset_grad = loss_and_grads(
+            state.gaussians, loss_fn)
+        with trace.span("step.adam"):
+            g, adam = apply_adam(state.gaussians, state.adam, grads,
+                                 state.step, cfg)
+            stats = state.stats.update(offset_grad, radii, cam.width,
+                                       cam.height)
+        return (TrainState(gaussians=g, adam=adam, stats=stats,
+                           step=state.step + 1),
+                StepAux(loss=loss, psnr=psnr.detach(), overflow=overflow))
 
 
 def train_step(

@@ -1007,15 +1007,6 @@ def load_scene():
     return g
 
 
-def reset_counters(ops) -> None:
-    ops.preprocess_cuda.launches = 0
-    ops.preprocess_cuda.bwd_launches = 0
-    ops.fill_cuda.launches = 0
-    ops.blend_cuda.launches = 0
-    ops.blend_cuda.train_launches = 0
-    ops.blend_cuda.bwd_launches = 0
-
-
 def check_launches(launches: dict, want: dict, what: str) -> None:
     """Each wrapper launched exactly as often as the path should."""
     for name, n in launches.items():
@@ -1038,7 +1029,7 @@ def operating_point(P, card: str) -> list[dict]:
 
     # the main path, counted
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     frames = [P.rasterize(g, c, bg=bg, config=config) for c in cams]
     sync()
     launches = bench.kernel_launches()
@@ -1407,7 +1398,7 @@ def training_point(P, card: str):
     overflow = torch.zeros((), dtype=torch.bool, device=DEVICE)
     step_loss = []
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     for i in range(TRAIN_STEPS):
         state, aux = trainer.train_step(state, cams[i % N_CAMS],
                                         images[i % N_CAMS], cfg)
@@ -1418,7 +1409,7 @@ def training_point(P, card: str):
     loss30 = camera0_loss(P, losses, state.gaussians, cams[0], images[0], cfg)
     n_before = int(state.gaussians.num_active)
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     state, res = trainer.densify_step(state, gen, cfg, TRAIN_STEPS)
     state = trainer.reset_opacity_step(state)
     for i in range(AFTER_DENSIFY_STEPS):
@@ -1736,7 +1727,7 @@ def edited_frame_point(P, card: str) -> tuple[dict, dict, dict, dict]:
 
     # the main path, counted
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     frames = clip.render_clip(inp, N_CAMS, config, fused=True)
     sync()
     launches = bench.kernel_launches()
@@ -2181,7 +2172,7 @@ def effects_frame_point(P, card: str, edit: dict):
 
     # the main path, counted
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     frames = clip.render_clip(inp_fx, N_CAMS, config, fused=True,
                               smoke_cfg=cfg)
     sync()
@@ -2376,7 +2367,7 @@ def panorama_point(P, card: str, g) -> tuple[dict, dict]:
     budget = ops.binning.round_budget(worst, slack=BUDGET_SLACK)
     config = P.RasterConfig(dup_budget=budget, tile=TILE)
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     t0 = time.perf_counter()
     pano = panorama.render_panorama(g, PANORAMA_CENTER,
                                     face_size=PANORAMA_FACE,
@@ -2738,7 +2729,7 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
     np.random.seed(0)
     torch.cuda.reset_peak_memory_stats()
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     t0 = time.perf_counter()
     try:
         frames = edit_scene.run_scene_editing(opts, opts.edit_text,
@@ -3235,7 +3226,7 @@ def removal_program_point(P, card: str) -> tuple[dict, dict]:
     np.random.seed(0)
     torch.cuda.reset_peak_memory_stats()
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     t0 = time.perf_counter()
     try:
         frames = edit_scene.run_scene_editing(opts, opts.edit_text,
@@ -3724,7 +3715,6 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
     from autovfx_tpu_torch.utils import metrics as MET
     from autovfx_tpu_torch.utils import png
 
-    ops = P.ops
     model = os.path.join(root, "model")
     argv = ["--source_path", root, "--model_path", model, *SUGAR_CLI,
             "--dup_budget", str(budget), "--device", DEVICE]
@@ -3779,7 +3769,7 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
     saved += counted_renders(clock, (LS, MET))
     torch.cuda.reset_peak_memory_stats()
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     t0 = time.perf_counter()
     try:
         result = TG.main(argv)
@@ -3898,7 +3888,7 @@ def sugar_refine(P, card: str, run: dict, rng) -> tuple[dict, dict]:
     rcfg = RT.RefineConfig(iterations=REFINE_STEPS, raster=P.RasterConfig(
         dup_budget=budget, tile=SUGAR_TILE))
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     t0 = time.perf_counter()
     refined, hist = RT.refine_train(bound, cams, images, rcfg, log_every=1)
     sync()
@@ -3952,7 +3942,6 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
     from autovfx_tpu_torch.sugar import levelset as LS
     from autovfx_tpu_torch.sugar import sdf_fusion as SF
 
-    ops = P.ops
     rng = np.random.default_rng(16)
     tmp = tempfile.TemporaryDirectory()
     budget = sugar_scene_files(P, tmp.name)
@@ -3968,7 +3957,7 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
             clock = StageClock()
             saved = counted_renders(clock, (LS, SF))
             sync()
-            reset_counters(ops)
+            P.utils.trace.reset()
             t0 = time.perf_counter()
             try:
                 m = EM.extract_mesh_from_gaussians(
@@ -4274,7 +4263,6 @@ def one_nccl_rank(P, card, cams, target, cfg, images, start) -> tuple:
     from autovfx_tpu_torch.parallel import sharding as S
     from autovfx_tpu_torch.train import trainer
 
-    ops = P.ops
     mesh = make_mesh((1, 1), backend=MD_ONE_RANK, device=DEVICE)
     x = torch.randn(1 << 20, device=DEVICE)
     check(torch.equal(M.all_reduce(x.clone(), mesh, "data"), x),
@@ -4299,7 +4287,7 @@ def one_nccl_rank(P, card, cams, target, cfg, images, start) -> tuple:
                 bool(c_ovf), bool(d_ovf))
 
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     (s_dp, a_dp, full, comp, dist_out, frames, reshards, c_ovf,
      d_ovf) = paths()
     sync()
@@ -4389,7 +4377,6 @@ def multi_device_rank(rank: int, world: int, spec: dict) -> dict:
     from autovfx_tpu_torch.train.densify import DensifyStats
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
-    ops = P.ops
     dev = torch.device(DEVICE)
     on_card = dev.type == "cuda"
     peak = lambda: torch.cuda.max_memory_allocated() if on_card else 0
@@ -4409,7 +4396,7 @@ def multi_device_rank(rank: int, world: int, spec: dict) -> dict:
 
     def counted(fn):
         sync_any()
-        reset_counters(ops)
+        P.utils.trace.reset()
         r = fn()
         sync_any()
         for k, n in bench.kernel_launches().items():
@@ -4699,7 +4686,7 @@ def dataset_tools_point(P, card: str) -> dict:
         write_colmap_model(os.path.join(garden, "sparse", "0"), cams,
                            g.xyz.cpu().numpy(), rgb8.cpu().numpy())
         sync()
-        reset_counters(ops)
+        P.utils.trace.reset()
         with stage("read_360"):
             dc = readers.read_360(garden)
             rcams = readers.to_cameras(dc, WIDTH, HEIGHT, device=DEVICE)
@@ -4874,7 +4861,6 @@ def train_at_scale_point(P, card: str) -> dict:
     from autovfx_tpu_torch import train_at_scale as TS
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
 
-    ops = P.ops
     args = ["--splats", str(SCALE_SPLATS), "--iters", str(SCALE_ITERS),
             "--width", str(WIDTH), "--height", str(HEIGHT), "--views",
             str(SCALE_VIEWS), "--device", DEVICE]
@@ -4886,7 +4872,7 @@ def train_at_scale_point(P, card: str) -> dict:
     start = TS.mean_psnr(TS.initial_gaussians(gt_model), cams, gt, cfg)
     del gt_model, gt
     sync()
-    reset_counters(ops)
+    P.utils.trace.reset()
     t0 = time.perf_counter()
     result = TS.main(args)
     sync()

@@ -162,7 +162,7 @@ def test_import_needs_no_nvcc():
 
 
 def test_cpu_tensors_never_reach_the_loader(monkeypatch):
-    from autovfx_tpu_torch.ops import blend_cuda, fill_cuda, preprocess_cuda
+    from autovfx_tpu_torch.bench import kernel_launches
     from autovfx_tpu_torch.core.cameras import look_at_camera
     from autovfx_tpu_torch.train import trainer
     from autovfx_tpu_torch.utils.synthetic import make_garden_like
@@ -170,14 +170,9 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     def refuse(*_):
         raise AssertionError("the CUDA library was asked for on the CPU")
 
-    def launches():
-        return (preprocess_cuda.launches, preprocess_cuda.bwd_launches,
-                fill_cuda.launches, blend_cuda.launches,
-                blend_cuda.train_launches, blend_cuda.bwd_launches)
-
     monkeypatch.setattr(_build, "load_library", refuse)
     monkeypatch.setattr(_build, "build", refuse)
-    counts = launches()
+    counts = kernel_launches()
     g = make_garden_like(3000, seed=2, extent=2.67, device="cpu")
     cam = look_at_camera([2.6, 0.0, 1.4], [0, 0, 0.2], [0, 0, 1],
                          fx=48.0, fy=48.0, width=64, height=48, device="cpu")
@@ -188,7 +183,7 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
         trainer.init_state(g), cam, out.rgba[..., :3].flip(0),
         trainer.TrainConfig(raster=config))
     assert state.adam.count == 1 and bool(aux.loss > 0)
-    assert counts == launches()
+    assert counts == kernel_launches()
 
 
 def test_library_hash_follows_sources_and_flags(tmp_path, monkeypatch):

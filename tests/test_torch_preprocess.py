@@ -25,6 +25,7 @@ from autovfx_tpu.ops import projection as JPr
 from autovfx_tpu.utils.synthetic import make_garden_like
 from autovfx_tpu_torch import convert
 from autovfx_tpu_torch.ops import preprocess_cuda, projection
+from autovfx_tpu_torch.utils import trace
 
 INT_FIELDS = ("radius", "tile_min", "tile_max", "tiles_touched")
 
@@ -163,9 +164,9 @@ def test_wrapper_takes_plain_path_for_cpu_tensors(scene, monkeypatch):
         raise AssertionError("CPU tensors must not load the CUDA library")
 
     monkeypatch.setattr(preprocess_cuda._build, "load_library", refuse)
-    before = preprocess_cuda.launches
+    before = trace.counters().get("launch.preprocess", 0)
     a = preprocess_cuda.preprocess(gt, ct, tile=32)
     b = projection.preprocess(gt, ct, tile=32)
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
-    assert preprocess_cuda.launches == before
+    assert trace.counters().get("launch.preprocess", 0) == before
