@@ -8,9 +8,17 @@ Counterpart of ``autovfx_tpu/sugar/density.py`` (itself
 The neighbour lists come from the Morton-window KNN (``ops/knn``).  The
 field is evaluated ``CHUNK`` points at a time, as the JAX package's
 ``lax.map`` does: at a million samples with 16 neighbours each, one
-gather of the inverse covariances is half a gigabyte.  Sampling draws
-from an explicit ``torch.Generator``, or takes the draws ``(idx, eps)``
-from the caller.
+gather of the inverse covariances is 400 MB.  Sampling draws from an
+explicit ``torch.Generator``, or takes the draws ``(idx, eps)`` from
+the caller.
+
+The 3×3 algebra is written out as elementwise products and sums: a
+chunk gathers each neighbour's centre and the six unique entries of its
+symmetric inverse covariance as (chunk, k) planes, and A·d and dᵀA·d
+are sums of plane products.  Batched 1×3 by 3×3 matrix products of
+these shapes run at a tiny fraction of the device; elementwise passes
+are bound by memory traffic, and autograd derives the backward from the
+same forward.
 """
 from __future__ import annotations
 
@@ -27,10 +35,12 @@ CHUNK = 1 << 18  # query points per evaluation
 
 
 def gaussian_inverse_covariance(g: Gaussians) -> torch.Tensor:
-    """(N, 3, 3) inverse world covariance R S^-2 R^T."""
+    """(N, 3, 3) inverse world covariance R S^-2 R^T:
+    A_ab = Σ_j R_aj R_bj / s_j²."""
     rot = quat_to_rotmat(g.rotations)
     inv_s2 = 1.0 / torch.clamp(g.scales**2, min=1e-12)
-    return torch.einsum("nij,nj,nkj->nik", rot, inv_s2, rot)
+    return torch.sum(rot[:, :, None, :] * rot[:, None, :, :]
+                     * inv_s2[:, None, None, :], dim=-1)
 
 
 def reset_neighbors(g: Gaussians, k: int = 16) -> torch.Tensor:
@@ -40,6 +50,36 @@ def reset_neighbors(g: Gaussians, k: int = 16) -> torch.Tensor:
     return idx
 
 
+def _field_tables(g: Gaussians):
+    """The Gaussians' centres (3, N), the six unique entries of their
+    inverse covariances (6, N: a00 a01 a02 a11 a12 a22), a row per value
+    so that a gather along the rows gives a (chunk, k) plane per value,
+    and their opacities (N,)."""
+    a = gaussian_inverse_covariance(g)
+    upper = torch.cat([a[:, 0, :], a[:, 1, 1:], a[:, 2, 2:]], dim=1)
+    return g.xyz.T, upper.T.contiguous(), g.opacity
+
+
+def _dot3(a, b) -> torch.Tensor:
+    """Σ_i a_i b_i over three planes."""
+    return torch.addcmul(torch.addcmul(a[0] * b[0], a[1], b[1]), a[2], b[2])
+
+
+def _field_pairs(points, nbrs, centers, entries, opacity):
+    """A chunk's (point, neighbour) pairs as (C, k) planes: A·d with
+    d = x − μ (three planes) and the weight σ·exp(-½ dᵀA d)."""
+    flat = nbrs.reshape(-1)
+    mu = centers.index_select(1, flat).view(3, *nbrs.shape)
+    a00, a01, a02, a11, a12, a22 = entries.index_select(1, flat).view(
+        6, *nbrs.shape).unbind(0)
+    # contiguous, so that d's planes are too: the difference takes the
+    # layout of its first operand
+    d = (points.T.contiguous()[:, :, None] - mu).unbind(0)
+    icd = (_dot3((a00, a01, a02), d), _dot3((a01, a11, a12), d),
+           _dot3((a02, a12, a22), d))
+    return icd, take(opacity, nbrs) * torch.exp(-0.5 * _dot3(d, icd))
+
+
 def compute_density(
     points: torch.Tensor,  # (P, 3) query points
     point_neighbors: torch.Tensor,  # (P, k) Gaussian indices per point
@@ -47,15 +87,12 @@ def compute_density(
     chunk: int = CHUNK,
 ) -> torch.Tensor:
     """(P,) density at the query points from their k nearest Gaussians."""
-    inv_cov = gaussian_inverse_covariance(g)
-    opacity = g.opacity
+    tables = _field_tables(g)
     out = []
     for s in range(0, points.shape[0], chunk):
-        nbrs = point_neighbors[s:s + chunk]
-        d = points[s:s + chunk, None, :] - take(g.xyz, nbrs)
-        mahal = torch.einsum("cki,ckij,ckj->ck", d, take(inv_cov, nbrs), d)
-        out.append(torch.sum(take(opacity, nbrs) * torch.exp(-0.5 * mahal),
-                             dim=-1))
+        _, w = _field_pairs(points[s:s + chunk], point_neighbors[s:s + chunk],
+                            *tables)
+        out.append(torch.sum(w, dim=-1))
     if not out:
         return points.new_zeros((0,))
     return torch.cat(out)
@@ -97,15 +134,13 @@ def density_gradient(
     chunk: int = CHUNK,
 ) -> torch.Tensor:
     """(P, 3) analytic ∇density (the level set's normals)."""
-    inv_cov = gaussian_inverse_covariance(g)
+    tables = _field_tables(g)
     out = []
     for s in range(0, points.shape[0], chunk):
-        nbrs = point_neighbors[s:s + chunk]
-        d = points[s:s + chunk, None, :] - take(g.xyz, nbrs)
-        icd = torch.einsum("ckij,ckj->cki", take(inv_cov, nbrs), d)
-        mahal = torch.einsum("cki,cki->ck", d, icd)
-        w = take(g.opacity, nbrs) * torch.exp(-0.5 * mahal)
-        out.append(-torch.sum(w[..., None] * icd, dim=1))
+        icd, w = _field_pairs(points[s:s + chunk],
+                              point_neighbors[s:s + chunk], *tables)
+        out.append(-torch.stack([torch.sum(w * c, dim=-1) for c in icd],
+                                dim=-1))
     if not out:
         return points.new_zeros((0, 3))
     return torch.cat(out)
@@ -149,5 +184,5 @@ def sample_points_in_gaussians(
         draws = draw_samples(g, generator, num_samples, mask)
     idx, eps = draws
     rot = quat_to_rotmat(take(g.rotations, idx))
-    offset = torch.einsum("nij,nj->ni", rot, take(g.scales, idx) * eps)
+    offset = torch.sum(rot * (take(g.scales, idx) * eps)[:, None, :], dim=-1)
     return take(g.xyz, idx) + offset, idx

@@ -10,8 +10,8 @@ pass, and the wrappers' refusals; and for the training path, the
 backward kernels under those options, the differentiable ``rasterize``
 and one ``train_step`` against the CPU path; for object removal, LaMa
 and ``inpaint_loss``'s gradients against the CPU; for SuGaR, a plain and
-a regularized coarse step and the level set against the CPU.  The
-tolerances are ``chip_smoke.py``'s.
+a regularized coarse step, the density field's forward and backward and
+the level set against the CPU.  The tolerances are ``chip_smoke.py``'s.
 
 Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere.  It imports neither
 JAX nor the JAX package, so it runs on a machine without them, from the
@@ -922,6 +922,48 @@ def test_sugar_level_set_matches_cpu(dev):
     assert both.sum() > 100
     err = np.abs(ls_g.points.cpu().numpy()[both] - ls_c.points.numpy()[both])
     assert float(err.max()) <= cs.LEVEL_POINT_TOL
+
+
+def test_sugar_density_field_matches_cpu(dev):
+    """The density field's forward and backward on the 600-splat shell
+    (the CPU's draws and neighbour lists on both devices): samples,
+    density and gradient within ``LOSS_RTOL`` of their largest, the
+    gradients of a random projection of them in the parameter fields
+    within ``STATE_TOL`` of their largest
+    (``chip_smoke.sugar_card_against_cpu``'s bounds)."""
+    from autovfx_tpu_torch.sugar import density as D
+    from autovfx_tpu_torch.utils.gather import take
+
+    g_cpu = cs.shell_gaussians("cpu")
+    draws = D.draw_samples(g_cpu, torch.Generator().manual_seed(0),
+                           cs.SHELL_SAMPLES)
+    nbrs = D.reset_neighbors(g_cpu)
+    proj = torch.randn((cs.SHELL_SAMPLES, 4),
+                       generator=torch.Generator().manual_seed(1))
+    fields = ("xyz", "log_scales", "quats", "opacity_logit")
+    out = {}
+    for d in ("cpu", "cuda"):
+        g = cs.shell_gaussians(d)
+        leaves = {f: getattr(g, f).clone().requires_grad_(True)
+                  for f in fields}
+        g = dataclasses.replace(g, **leaves)
+        pts, src = D.sample_points_in_gaussians(
+            g, None, cs.SHELL_SAMPLES, draws=tuple(x.to(d) for x in draws))
+        nb = take(nbrs.to(d), src)
+        dens = D.compute_density(pts, nb, g, chunk=1000)  # several chunks
+        grad = D.density_gradient(pts, nb, g, chunk=1000)
+        p = proj.to(d)
+        loss = torch.sum(dens * p[:, 0]) + torch.sum(grad * p[:, 1:])
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out[d] = {"samples": pts, "density": dens, "gradient": grad,
+                  **{f"d/d{f}": gr for f, gr in zip(fields, grads)}}
+    assert float(out["cpu"]["density"].detach().max()) > 0.1
+    for what, want in out["cpu"].items():
+        want = want.detach()
+        got = out["cuda"][what].detach().cpu()
+        tol = cs.STATE_TOL if what.startswith("d/d") else cs.LOSS_RTOL
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (what, err)
 
 
 def test_one_nccl_rank_matches_the_single_device_paths(scene, tmp_path):

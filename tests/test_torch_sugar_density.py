@@ -10,7 +10,14 @@ draws are JAX's, fed to the port's explicit-draw arguments.  Budgets:
 - gradients of the four regularization terms in every parameter field
   (and in the rendered depth and alpha maps) against ``jax.grad``: the
   error over the field's largest magnitude below 5e-4.
+
+The port writes the field's 3×3 algebra as elementwise products; on a
+float64 case it is held to the batched matrix products it replaces
+(``einsum_field``), values and gradients at 1e-10 of the largest, and a
+profiler guard checks that the regularization terms reach no
+matrix-multiply op but the camera projection's.
 """
+import collections
 import dataclasses
 
 import numpy as np
@@ -18,9 +25,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from autovfx_tpu.sugar import density as JD
 from autovfx_tpu.sugar import regularization as JREG
+from autovfx_tpu_torch.core.gaussians import Gaussians
+from autovfx_tpu_torch.core.quaternion import quat_to_rotmat
 from autovfx_tpu_torch.sugar import density as D
 from autovfx_tpu_torch.sugar import regularization as REG
 from torch_sugar_common import (
@@ -171,3 +181,135 @@ def test_surface_distance(shell):
     m = np.asarray(wv)
     assert m.sum() > 50
     close(got.numpy()[m], np.asarray(want)[m], what="distance")
+
+
+# ---- the elementwise field against batched matrix products, in float64 -----
+
+EXACT_RTOL = 1e-10
+MATMUL_OPS = ("aten::bmm", "aten::einsum", "aten::matmul", "aten::mm",
+              "aten::baddbmm")
+
+
+def einsum_field(points, nbrs, g):
+    """Density and its gradient as batched 3×3 products (the field's
+    formulation before it was written out elementwise)."""
+    rot = quat_to_rotmat(g.rotations)
+    inv_s2 = 1.0 / torch.clamp(g.scales**2, min=1e-12)
+    inv_cov = torch.einsum("nij,nj,nkj->nik", rot, inv_s2, rot)
+    d = points[:, None, :] - g.xyz[nbrs]
+    icd = torch.einsum("ckij,ckj->cki", inv_cov[nbrs], d)
+    w = g.opacity[nbrs] * torch.exp(-0.5 * torch.einsum("cki,cki->ck", d, icd))
+    return inv_cov, w.sum(-1), -torch.sum(w[..., None] * icd, dim=1)
+
+
+@pytest.fixture(scope="module")
+def f64_case():
+    """40 Gaussians with uneven scales and random rotations, 64 points
+    near them with 8 neighbours each, and sample draws, in float64."""
+    rng = np.random.default_rng(5)
+    n, p, k = 40, 64, 8
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    g = Gaussians(xyz=t(rng.uniform(-0.3, 0.3, (n, 3))),
+                  sh_dc=t(np.zeros((n, 3))), sh_rest=t(np.zeros((n, 0, 3))),
+                  log_scales=t(np.log(0.08) + 0.5 * rng.standard_normal((n, 3))),
+                  quats=t(rng.standard_normal((n, 4))),
+                  opacity_logit=t(rng.standard_normal(n)),
+                  active=torch.as_tensor(rng.random(n) > 0.1))
+    nbrs = torch.as_tensor(rng.integers(0, n, (p, k)))
+    points = g.xyz[nbrs[:, 0]] + t(0.05 * rng.standard_normal((p, 3)))
+    draws = (torch.as_tensor(rng.integers(0, n, p)),
+             t(rng.standard_normal((p, 3))))
+    return g, points, nbrs, draws
+
+
+def _field_outputs(fn, g, points, nbrs, draws):
+    if fn == "inverse_covariance":
+        return D.gaussian_inverse_covariance(g)
+    if fn == "samples":
+        return D.sample_points_in_gaussians(g, None, 0, draws=draws)[0]
+    f = D.compute_density if fn == "density" else D.density_gradient
+    return f(points, nbrs, g, chunk=24)  # two full chunks and a short one
+
+
+def _einsum_outputs(fn, g, points, nbrs, draws):
+    if fn == "samples":
+        idx, eps = draws
+        rot = quat_to_rotmat(g.rotations[idx])
+        return g.xyz[idx] + torch.einsum("nij,nj->ni", rot, g.scales[idx] * eps)
+    inv_cov, dens, grad = einsum_field(points, nbrs, g)
+    return {"inverse_covariance": inv_cov, "density": dens,
+            "gradient": grad}[fn]
+
+
+@pytest.mark.parametrize("fn", ["inverse_covariance", "density", "gradient",
+                                "samples"])
+def test_field_equals_batched_products_in_float64(f64_case, fn):
+    """Values, and the gradients of a random projection of them in the
+    centres, scales, rotations, opacities and the query points."""
+    g0, points0, nbrs, draws = f64_case
+    fields = ("xyz", "log_scales", "quats", "opacity_logit")
+    got = {}
+    for name, run in (("elementwise", _field_outputs),
+                      ("einsum", _einsum_outputs)):
+        leaves = {f: getattr(g0, f).clone().requires_grad_(True)
+                  for f in fields}
+        points = points0.clone().requires_grad_(True)
+        out = run(fn, dataclasses.replace(g0, **leaves), points, nbrs, draws)
+        proj = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            tuple(out.shape)))
+        inputs = [*leaves.values(), points]
+        grads = torch.autograd.grad(torch.sum(out * proj), inputs,
+                                    allow_unused=True)
+        got[name] = [out] + [torch.zeros_like(x) if gr is None else gr
+                             for x, gr in zip(inputs, grads)]
+    unused = {"inverse_covariance": ("xyz", "opacity_logit", "points"),
+              "samples": ("opacity_logit", "points")}.get(fn, ())
+    for what, a, b in zip(("value",) + fields + ("points",), got["elementwise"],
+                          got["einsum"]):
+        assert a.dtype == torch.float64
+        scale = float(b.detach().abs().max())
+        if what in unused:
+            assert scale == 0.0 and float(a.abs().max()) == 0.0, what
+            continue
+        assert scale > 0, what
+        err = float((a - b).detach().abs().max())
+        assert err <= EXACT_RTOL * scale, (fn, what, err / scale)
+
+
+def _matmul_ops(fn) -> collections.Counter:
+    """The matrix-multiply ops the profiler records over ``fn()`` on the
+    CPU, by name."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return collections.Counter(e.name for e in prof.events()
+                               if e.name in MATMUL_OPS)
+
+
+def test_regularization_reaches_no_matmul_but_the_projection(shell):
+    """One forward and backward of the density target and the normal
+    consistency records no matrix-multiply op besides those of the one
+    camera projection in the target's surface distance
+    (``Camera.project``), which a projection alone records."""
+    pg, cam = shell["pg"], shell["pcam"]
+    fields = ("xyz", "log_scales", "quats", "opacity_logit")
+    leaves = {f: getattr(pg, f).clone().requires_grad_(True) for f in fields}
+    g = dataclasses.replace(pg, **leaves)
+    depth = torch.as_tensor(np.asarray(shell["depth"]))
+    alpha = torch.as_tensor(np.asarray(shell["alpha"]))
+    draws = D.draw_samples(pg, torch.Generator().manual_seed(0), N_SAMPLES)
+
+    def step():
+        samples = REG.sample_sdf_points(g, None, N_SAMPLES, draws=draws)
+        loss = (REG.density_regularization_loss(g, samples, cam, depth, alpha)
+                + REG.normal_consistency_loss(g, samples))
+        loss.backward()
+
+    def projection():
+        pts = torch.as_tensor(shell["pts"]).requires_grad_(True)
+        uv, z = cam.project(pts)
+        (uv.sum() + z.sum()).backward()
+
+    got, projected = _matmul_ops(step), _matmul_ops(projection)
+    assert leaves["quats"].grad is not None
+    assert projected, "the projection records no matrix-multiply op"
+    assert got == projected, (got, projected)
