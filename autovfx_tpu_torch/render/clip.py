@@ -365,7 +365,11 @@ def render_edited_frame_fused(
         sets = [inp.bg, shaded]
         g_fire = None
         if inp.smoke_density is not None:
-            g_smoke, g_fire = smoke_gaussians(inp, frame_idx, smoke_cfg)
+            with trace.span("frame.smoke"):
+                g_smoke, g_fire = smoke_gaussians(inp, frame_idx, smoke_cfg)
+            if trace.enabled():
+                trace.count_device("smoke.splats", g_smoke.active.sum())
+                trace.count("smoke.slots", g_smoke.capacity)
             sets.append(g_smoke)
         out = rasterize_multi(sets, cam, config=config)
 
@@ -379,8 +383,10 @@ def render_edited_frame_fused(
                 cam, out.depth, torch.clamp(alpha, min=1e-3), inp.light_dirs,
                 inp.light_weights, planes_w, inp.hull_mask,
                 scale=shadow_scale)
-        fire = (None if g_fire is None else
-                rasterize(g_fire, cam, config=fire_config(config)).color)
+        fire = None
+        if g_fire is not None:
+            with trace.span("frame.fire"):
+                fire = rasterize(g_fire, cam, config=fire_config(config)).color
         return fused_composite(out, ratio, w_obj, fire)
 
 

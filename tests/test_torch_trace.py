@@ -133,8 +133,11 @@ def test_coarse_step_density_span(scene):
     assert "sugar.density" in names
 
 
-def test_edited_frame_tree(scene):
-    from autovfx_tpu_torch.render import clip
+def edit_inputs(scene, effects: bool = False):
+    """A cube's eight corner surfels over ``scene`` for two frames and, with
+    ``effects``, an 8³ adaptive smoke and fire volume and the corners
+    melting."""
+    from autovfx_tpu_torch.render import clip, liquid, smoke
 
     corners = np.array([[x, y, z] for x in (-.3, .3) for y in (-.3, .3)
                         for z in (-.3, .3)], np.float32)
@@ -142,10 +145,29 @@ def test_edited_frame_tree(scene):
             "radius": np.float32(0.1)}
     hull = type("Hull", (), {"planes": np.zeros((1, 8, 4), np.float32),
                              "plane_mask": np.ones((1, 8), bool)})()
-    inp = clip.build_clip_inputs(
+    fx = {}
+    if effects:
+        s_cfg = smoke.SmokeConfig(resolution=8, with_fire=True)
+        states, cells = smoke.simulate_smoke(
+            s_cfg, smoke.sphere_inflow(s_cfg, [4, 4, 2], 2.0, device="cpu"),
+            2, adaptive=True)
+        mf = liquid.MeltSim(corners, ground_z=-0.3,
+                            cfg=liquid.LiquidConfig(resolution=8, substeps=2),
+                            device="cpu").run([0.5, 1.0])
+        fx = {"smoke_traj": (states, np.array([-1.0, -1.0, -0.3], np.float32),
+                             2.0, s_cfg, cells),
+              "melt": {"pos": mf.tracer_pos, "norm": mf.tracer_norm,
+                       "mask": np.ones(8, bool)}}
+    return clip.build_clip_inputs(
         scene, stack_cameras([camera(), camera(1.0)]), [{}], [surf],
         np.zeros((2, 1, 3)), np.tile(np.eye(3), (2, 1, 1, 1)), hull,
-        np.ones((4, 8, 3), np.float32), num_lights=2, device="cpu")
+        np.ones((4, 8, 3), np.float32), num_lights=2, device="cpu", **fx)
+
+
+def test_edited_frame_tree(scene):
+    from autovfx_tpu_torch.render import clip
+
+    inp = edit_inputs(scene)
     with torch.no_grad():
         _, snap, names = traced(lambda: [
             clip.render_edited_frame_fused(inp, i, CONFIG) for i in (0, 1)])
@@ -155,6 +177,54 @@ def test_edited_frame_tree(scene):
     assert sorted({r.call for r in snap.records}) == [0, 1]
     assert {"frame", "frame.shading", "frame.shadow", "raster",
             "raster.binning"} <= names
+
+
+def test_frame_without_smoke_records_no_effects_span(scene):
+    from autovfx_tpu_torch.render import clip
+
+    inp = edit_inputs(scene)
+    with torch.no_grad():
+        _, snap, names = traced(lambda: clip.render_edited_frame_fused(
+            inp, 0, CONFIG))
+    assert not {"frame.smoke", "frame.fire"} & (set(snap.spans) | names)
+    assert not {"smoke.splats", "smoke.slots"} & set(snap.counters)
+
+
+def test_effects_frame_tree_and_counters(scene):
+    from autovfx_tpu_torch.render import clip
+
+    inp = edit_inputs(scene, effects=True)
+    with torch.no_grad():
+        _, snap, names = traced(lambda: [
+            clip.render_edited_frame_fused(inp, i, CONFIG) for i in (0, 1)])
+        sets = [clip.smoke_gaussians(inp, i)[0] for i in (0, 1)]
+    assert tree(snap) == {("frame", None), ("frame.shading", "frame"),
+                          ("frame.smoke", "frame"), ("raster", "frame"),
+                          ("raster.binning", "raster"),
+                          ("frame.shadow", "frame"), ("frame.fire", "frame"),
+                          ("raster", "frame.fire")}
+    recs = snap.records
+    for r in recs:  # every span carries its frame's call id
+        if r.parent is not None:
+            assert r.call == recs[r.parent].call
+    assert sorted(r.call for r in recs if r.name == "frame.fire") == [0, 1]
+    assert {n: s.calls for n, s in snap.spans.items()}["raster"] == 4
+    assert {"frame.smoke", "frame.fire"} <= names
+    live = sum(int(g.active.sum()) for g in sets)
+    assert live > 0
+    assert snap.counters["smoke.splats"] == live
+    assert snap.counters["smoke.slots"] == sum(g.capacity for g in sets)
+
+
+def test_effects_frame_off_records_nothing(scene):
+    from autovfx_tpu_torch.render import clip
+
+    inp = edit_inputs(scene, effects=True)
+    with torch.no_grad():
+        clip.render_edited_frame_fused(inp, 1, CONFIG)
+    snap = trace.snapshot()
+    assert snap.records == [] and snap.spans == {}
+    assert not {"smoke.splats", "smoke.slots"} & set(snap.counters)
 
 
 def test_self_time_is_duration_less_children():
@@ -220,7 +290,8 @@ def test_host_waits_counts_sync_warnings(monkeypatch):
 
 FRAME_READERS = {"shading_ms.frames": 2.0, "shadow_ms.frames": 4.0,
                  "binning_ms.frames": 1.0, "dup_fill.frames": 80.0,
-                 "host_waits.frames": 3.0}
+                 "host_waits.frames": 3.0, "smoke_ms.frames": 3.0,
+                 "fire_ms.frames": 5.0, "smoke_fill.frames": 25.0}
 STEP_READERS = {"loss_ms.train": 2.0, "backward_ms.train": 4.0,
                 "adam_ms.train": 1.0, "density_ms.train": 8.0,
                 "host_waits.train": 2.5}
@@ -244,8 +315,10 @@ def known_snapshot() -> trace.Snapshot:
     spans = {"frame.shading": stats(0.008), "frame.shadow": stats(0.016),
              "raster.binning": stats(0.004), "step.loss": stats(0.008),
              "step.backward": stats(0.016), "step.adam": stats(0.004),
-             "sugar.density": stats(0.032)}
+             "sugar.density": stats(0.032), "frame.smoke": stats(0.012),
+             "frame.fire": stats(0.020)}
     return trace.Snapshot(spans, {"raster.dups": 800, "raster.slots": 1000,
+                                  "smoke.splats": 100, "smoke.slots": 400,
                                   "host_waits": {"frames": 12,
                                                  "steps": 10}}, [])
 
