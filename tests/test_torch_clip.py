@@ -17,6 +17,9 @@ file does.  Budgets:
 - ``render_clip`` of two frames, plain and 2× supersampled: shape,
   finite, within [0, 1]; malformed effects inputs raise.
 
+JAX's frames are read from its recording ``clip``
+(``tests/torch_references.py``); the inputs are built live.
+
 The multi-pass frame against JAX's is ``tests/test_torch_clip_multipass.py``;
 the frame with smoke, fire and melt tracers is
 ``tests/test_torch_effects_clip.py``.
@@ -30,10 +33,8 @@ import pytest
 import torch
 
 from autovfx_tpu.core import cameras as JC
-from autovfx_tpu.core.gaussians import merge as j_merge
 from autovfx_tpu.ops import blend_pallas as JBP
 from autovfx_tpu.ops import preprocess_pallas as PP
-from autovfx_tpu.ops.rasterize import rasterize as j_rasterize
 from autovfx_tpu.render import clip as JCL
 from autovfx_tpu_torch import convert
 from autovfx_tpu_torch.core.cameras import index_camera
@@ -43,11 +44,12 @@ from autovfx_tpu_torch.render import clip as CL
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+import torch_references as REF  # noqa: E402
 from test_clip_fused import _setup  # noqa: E402
 
 
-@pytest.fixture(autouse=True)
-def interpret_pallas(monkeypatch):
+def interpret(monkeypatch):
+    """The JAX package's Pallas kernels in interpret mode."""
     orig = pl.pallas_call
 
     def patched(*args, **kwargs):
@@ -57,6 +59,11 @@ def interpret_pallas(monkeypatch):
     monkeypatch.setattr(pl, "pallas_call", patched)
     monkeypatch.setattr(PP.pl, "pallas_call", patched)
     monkeypatch.setattr(JBP.pl, "pallas_call", patched)
+
+
+@pytest.fixture(autouse=True)
+def interpret_pallas(monkeypatch):
+    interpret(monkeypatch)
 
 
 def port_gaussians(g):
@@ -85,15 +92,33 @@ def port_config(cfg):
     return RasterConfig(dup_budget=cfg.dup_budget, tile=cfg.tile)
 
 
-@pytest.fixture(scope="module")
-def clip():
-    """(JAX inputs, JAX config, port inputs, port config)."""
+def clip_setup():
+    """``_setup``'s JAX inputs and config."""
     with pytest.MonkeyPatch.context() as mp:  # build_clip_inputs packs rows
         orig = pl.pallas_call
         mp.setattr(PP.pl, "pallas_call",
                    lambda *a, **k: orig(*a, **dict(k, interpret=True)))
-        inp, cfg = _setup()
+        return _setup()
+
+
+def jax_inputs_digest(inp, cfg) -> str:
+    return REF.digest(dict(inputs=inp, cfg=cfg))
+
+
+@pytest.fixture(scope="module")
+def clip():
+    """(JAX inputs, JAX config, port inputs, port config)."""
+    inp, cfg = clip_setup()
     return inp, cfg, port_inputs(inp), port_config(cfg)
+
+
+@pytest.fixture(scope="module")
+def jax_frame(clip):
+    """Frame 0 of JAX's clip, from its recording ``clip``: ``rasterize``
+    (``backend="ref"``) of the background and object sets joined, and
+    the fused frame at ``shadow_scale=2``."""
+    inp, cfg, _, _ = clip
+    return REF.load("clip", jax_inputs_digest(inp, cfg))
 
 
 @pytest.fixture(scope="module")
@@ -107,18 +132,17 @@ def psnr(a, b):
     return -10.0 * np.log10(max(mse, 1e-30))
 
 
-def test_rasterize_multi_matches_jax_ref_of_the_concatenated_set(clip):
-    inp, cfg, pin, pcfg = clip
-    g_obj = JCL.shaded_object_gaussians(inp, 0, JC.index_camera(inp.cams, 0))
-    want = j_rasterize(j_merge(inp.bg, g_obj), JC.index_camera(inp.cams, 0),
-                       config=cfg.replace(backend="ref"))
+def test_rasterize_multi_matches_jax_ref_of_the_concatenated_set(
+        clip, jax_frame):
+    _, _, pin, pcfg = clip
+    want = jax_frame["merged_ref"]
     cam = index_camera(pin.cams, 0)
     got = rasterize_multi(
         [pin.bg, CL.shaded_object_gaussians(pin, 0, cam)], cam, config=pcfg)
     assert not bool(got.overflow)
-    assert psnr(got.color.numpy(), want.color) > 70.0
-    assert np.abs(got.alpha.numpy() - np.asarray(want.alpha)).max() < 1e-5
-    wd = np.asarray(want.depth)
+    assert psnr(got.color.numpy(), want["color"]) > 70.0
+    assert np.abs(got.alpha.numpy() - np.asarray(want["alpha"])).max() < 1e-5
+    wd = np.asarray(want["depth"])
     rel = np.abs(got.depth.numpy() - wd) / np.maximum(wd, 1e-3)
     assert rel.max() < 1e-4
 
@@ -155,10 +179,8 @@ def test_object_surfels_match_jax(clip):
         assert np.abs(a - b).max() <= 1e-5 * scale, f
 
 
-def test_fused_frame_matches_jax_fused_frame(clip, port_fused):
-    inp, cfg, _, _ = clip
-    want = np.asarray(JCL.render_edited_frame_fused(inp, 0, cfg,
-                                                    shadow_scale=2))
+def test_fused_frame_matches_jax_fused_frame(jax_frame, port_fused):
+    want = jax_frame["fused"]
     assert port_fused.shape == want.shape
     assert psnr(port_fused, want) > 40.0
 

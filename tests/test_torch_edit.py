@@ -21,6 +21,11 @@ pixels within 1e-4 with a mean difference ≤ 1e-3 (the multi-pass budget
 of ``tests/test_torch_clip_multipass.py``); ``rb_transform`` within
 ``tests/test_physics_golden.py``'s bounds (0.15 over the clip, 0.01 over
 its last frames).
+
+The JAX side of each edit's ``render_scene`` is read from its recording
+(``tests/torch_references.py``), made by
+``scripts/gen_torch_references.py`` on the same files with
+``jax_reference``; the JAX scene's loaders still run live.
 """
 import contextlib
 import copy
@@ -45,6 +50,8 @@ from autovfx_tpu.utils.linalg import apply_rotation
 from autovfx_tpu.utils.synthetic import make_gaussians
 from autovfx_tpu_torch.edit import edit_utils as EU
 from autovfx_tpu_torch.edit import scene_representation as SR
+
+import torch_references as REF
 
 BUDGET = 1 << 18
 PIXEL_TOL, PIXEL_SHARE, MEAN_TOL = 1e-4, 0.995, 1e-3
@@ -89,6 +96,44 @@ def write_scene(root: str, n_cams: int = 4) -> dict:
     return dict(source_path=root, model_path=root, gaussians_ckpt_path=ckpt,
                 scene_mesh_path=mesh_path, custom_traj_name="test_traj",
                 dup_budget=BUDGET, light_samples=8)
+
+
+def scene_inputs(root: str, params: dict, *files) -> dict:
+    """``write_scene``'s files (and ``files``) in ``root`` by digest, and
+    its parameters other than paths: what a recording of its scene was
+    made from."""
+    return dict(
+        files=REF.file_digests(root, ("scene.ply", "scene_mesh.obj",
+                                      "custom_camera_path/test_traj.json",
+                                      *files)),
+        params={k: v for k, v in params.items()
+                if not str(v).startswith(root)})
+
+
+def edit_inputs(root: str, oid: str, pos, n_cams: int = 4,
+                mesh: str = "box.obj", color=(0.3, 0.6, 0.9)):
+    """``write_scene``'s files and a box (``mesh``) at ``pos`` as object
+    ``oid``: (scene parameters, object dict, digest of both)."""
+    params = write_scene(root, n_cams)
+    box = os.path.join(root, mesh)
+    JMIO.save_obj(box, box_mesh(0.5, color=color))
+    obj = box_object(box, oid, pos)
+    key = REF.digest(dict(scene_inputs(root, params, mesh),
+                          object=dict(obj, object_path=mesh)))
+    return params, obj, key
+
+
+def drop_inputs(root: str):
+    """The drop edit's inputs (``drop``) and their digest."""
+    params, obj, key = edit_inputs(root, "redbox01", [0.0, 0.0, 1.2],
+                                   mesh="ball.obj", color=(0.9, 0.1, 0.1))
+    return params, obj, REF.digest([key, "allow_physics"])
+
+
+def run_edit_inputs(root: str, pos, edits, n_cams: int = 4):
+    """``run_edit``'s inputs (a test module's ``EDIT``) and their digest."""
+    params, obj, key = edit_inputs(root, "cube01", pos, n_cams)
+    return params, obj, REF.digest([key, "allow_physics", *edits])
 
 
 def scenes(root: str, params: dict, **extra):
@@ -196,10 +241,12 @@ def rb_close(got: dict, want: dict):
                 < REST_TOL, (name, key)
 
 
-def normalized_config(path: str, cache: str) -> dict:
+def normalized_config(path: str, cache: str, root: str) -> dict:
+    """The edit config with its cache and scene directories named
+    ``<cache>`` and ``<root>``."""
     with open(path) as f:
         text = f.read()
-    return json.loads(text.replace(cache, "<cache>"))
+    return json.loads(text.replace(cache, "<cache>").replace(root, "<root>"))
 
 
 def spy(scene, name: str, calls: list):
@@ -216,23 +263,19 @@ def spy(scene, name: str, calls: list):
 
 @pytest.fixture(scope="module")
 def drop(tmp_path_factory):
-    """``tests/test_edit.py``'s drop edit through both packages, each
-    ``render_scene`` once."""
+    """``tests/test_edit.py``'s drop edit through the port's
+    ``render_scene`` once, and the JAX package's recorded
+    (``edit_drop``); the JAX scene is loaded live."""
     root = str(tmp_path_factory.mktemp("drop"))
-    params = write_scene(root)
+    params, obj, key = drop_inputs(root)
     js, ts = scenes(root, params)
-    box = os.path.join(root, "ball.obj")
-    JMIO.save_obj(box, box_mesh(0.5, color=(0.9, 0.1, 0.1)))
-    insert_both(js, ts, box_object(box, "redbox01", [0.0, 0.0, 1.2]),
-                "allow_physics")
-    bg = {"jax": [], "port": []}
-    spy(js, "render_from_3DGS", bg["jax"])
+    insert_both(js, ts, obj, "allow_physics")
+    want = REF.load("edit_drop", key)
+    bg = {"jax": want["render_from_3DGS"], "port": []}
     spy(ts, "render_from_3DGS", bg["port"])
-    with jax_reference():
-        want = np.asarray(js.render_scene())
     got = ts.render_scene()
-    return dict(root=root, params=params, js=js, ts=ts, want=want, got=got,
-                bg=bg)
+    return dict(root=root, params=params, js=js, ts=ts, jax=want,
+                want=want["frames"], got=got, bg=bg)
 
 
 def test_scene_and_cameras_equal(drop):
@@ -278,20 +321,18 @@ def test_drop_edit_frames_match_jax(drop):
 
 
 def test_drop_edit_rb_transform_matches_jax(drop):
-    got, want = drop["ts"].rb_transform, drop["js"].rb_transform
+    got, want = drop["ts"].rb_transform, drop["jax"]["rb_transform"]
     rb_close(got, want)
     assert got["redbox01"]["3"]["pos"][2] < got["redbox01"]["0"]["pos"][2]
 
 
 def test_drop_edit_writes_frames_and_config(drop):
-    ts, js = drop["ts"], drop["js"]
-    root = drop["root"]
+    ts, root = drop["ts"], drop["root"]
     blended = os.path.join(ts.blender_output_dir, "blended")
     assert sorted(os.listdir(blended)) == [f"{i:04d}.png" for i in range(4)]
     got = normalized_config(os.path.join(ts.cache_dir, "edit_config.json"),
-                            os.path.join(root, "port_cache"))
-    want = normalized_config(os.path.join(js.cache_dir, "edit_config.json"),
-                             os.path.join(root, "jax_cache"))
+                            os.path.join(root, "port_cache"), root)
+    want = copy.deepcopy(drop["jax"]["edit_config"])
     rb_close(got.pop("rb_transform"), want.pop("rb_transform"))
     assert got == want
 
@@ -335,28 +376,30 @@ def test_render_from_3dgs_takes_a_range_or_array_where_the_reference_raises(
 
 
 def run_edit(tmp_path_factory, name, pos, edits, after=None, n_cams=4):
-    """One cube at ``pos`` with the DSL ``edits`` (and ``after(js, ts)``,
-    e.g. events) through both packages' ``render_scene`` over ``n_cams``
-    frames: (JAX scene, port scene, JAX frames, port frames)."""
+    """One cube at ``pos`` with the DSL ``edits`` (and ``after(want, ts)``,
+    e.g. events) through the port's ``render_scene`` over ``n_cams``
+    frames, and the JAX package's recording ``edit_<name>`` of the same:
+    (JAX's recorded outputs, port scene, JAX frames, port frames)."""
     root = str(tmp_path_factory.mktemp(name))
-    js, ts = scenes(root, write_scene(root, n_cams))
-    box = os.path.join(root, "box.obj")
-    JMIO.save_obj(box, box_mesh(0.5, color=(0.3, 0.6, 0.9)))
-    insert_both(js, ts, box_object(box, "cube01", pos), "allow_physics",
-                *edits)
+    params, obj, key = run_edit_inputs(root, pos, edits, n_cams)
+    ts = SR.SceneRepresentation(SR.SceneParams(
+        cache_dir=os.path.join(root, "port_cache"), device="cpu", **params))
+    for edit in ("allow_physics", *edits):
+        obj = getattr(EU, edit)(obj)
+    EU.insert_object(ts, obj)
+    want = REF.load("edit_" + name, key)
     if after is not None:
-        after(js, ts)
-    with jax_reference():
-        want = np.asarray(js.render_scene(save=False))
+        after(want, ts)
     got = ts.render_scene(save=False)
-    return js, ts, want, got
+    return want, ts, want["frames"], got
 
 
-def same_fragments(js, ts):
-    """The same 8 fragments per broken object: ids, ``visible_from``,
-    faces equal, vertices within 1e-6."""
-    assert sorted(ts._fragments) == sorted(js._fragments)
-    for oid, pieces in js._fragments.items():
+def same_fragments(want: dict, ts):
+    """The same 8 fragments per broken object as JAX's recorded
+    ``_fragments``: ids, ``visible_from``, faces equal, vertices within
+    1e-6."""
+    assert sorted(ts._fragments) == sorted(want)
+    for oid, pieces in want.items():
         got = ts._fragments[oid]
         assert len(got) == len(pieces) == 8
         for a, b in zip(got, pieces):

@@ -21,6 +21,9 @@ interpret mode, as that file does.  Budgets:
 - ``build_clip_inputs`` with ``smoke_traj`` (4- and 5-tuple) and ``melt``:
   the JAX package's arrays;
 - ``render_clip(smoke_cfg=...)``: the fused frames, one by one.
+
+JAX's fused frames are read from its recording ``effects_clip``
+(``tests/torch_references.py``); the inputs are built live.
 """
 import os
 import sys
@@ -42,6 +45,7 @@ from autovfx_tpu_torch.render import smoke as SMK
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+import torch_references as REF  # noqa: E402
 from test_clip_fused import _setup  # noqa: E402
 from test_torch_clip import port_config, port_inputs, psnr  # noqa: E402
 
@@ -50,6 +54,7 @@ FRAMES = 2
 ORIGIN = np.array([-0.6, -0.6, -0.3], np.float32)
 EXTENT = 1.2
 FUSED_DB = 40.0
+FUSED_CASES = [("smoke", 1), ("adaptive", 1), ("melt", 0)]
 
 
 def smoke_cfgs():
@@ -79,8 +84,7 @@ def melt_tracers(inp):
     return dict(pos=pos, norm=nrm, mask=np.ones(s, bool))
 
 
-@pytest.fixture(scope="module")
-def clip():
+def clip_inputs():
     """JAX inputs (plain, smoke, adaptive smoke, melt), the JAX config,
     their ports and the port's config."""
     with pytest.MonkeyPatch.context() as mp:
@@ -107,6 +111,24 @@ def clip():
                                                                 cells))
 
 
+def fused_inputs_digest(clip) -> str:
+    """The digest of the JAX fused frames' inputs (``FUSED_CASES``)."""
+    return REF.digest(dict(inputs=clip["jax"], cfg=clip["cfg"],
+                           smoke_cfg=smoke_cfgs()[1], cases=FUSED_CASES))
+
+
+@pytest.fixture(scope="module")
+def clip():
+    return clip_inputs()
+
+
+@pytest.fixture(scope="module")
+def jax_fused(clip):
+    """JAX's fused frames of ``FUSED_CASES`` (``shadow_scale=1``), from its
+    recording ``effects_clip``."""
+    return REF.load("effects_clip", fused_inputs_digest(clip))
+
+
 @pytest.fixture(scope="module")
 def port_frames(clip):
     """The port's fused frames 0 and 1 of each clip."""
@@ -117,13 +139,10 @@ def port_frames(clip):
             for k, inp in clip["port"].items()}
 
 
-@pytest.mark.parametrize("case, frame", [("smoke", 1), ("adaptive", 1),
-                                         ("melt", 0)])
-def test_fused_frame_matches_jax_fused_frame(clip, port_frames, case, frame):
-    _, jcfg = smoke_cfgs()
-    want = np.asarray(JCL.render_edited_frame_fused(
-        clip["jax"][case], frame, clip["cfg"], shadow_scale=1,
-        smoke_cfg=jcfg))
+@pytest.mark.parametrize("case, frame", FUSED_CASES)
+def test_fused_frame_matches_jax_fused_frame(jax_fused, port_frames, case,
+                                             frame):
+    want = jax_fused[f"{case}_{frame}"]
     got = port_frames[case][frame]
     assert got.shape == want.shape
     assert psnr(got, want) > FUSED_DB, psnr(got, want)

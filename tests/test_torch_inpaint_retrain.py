@@ -16,7 +16,8 @@ retraining's output, and ``remove_object`` / ``update_object``.
   ``tests/test_torch_edit.py``'s scene (2 frames): the merged mesh
   exactly, the hole masks exactly, the inpainted PNGs within 1/255 where
   the holes agree (no LaMa checkpoint: both inpaint with OpenCV's
-  TELEA), the poses JSON within 1e-6;
+  TELEA), the poses JSON within 1e-6; JAX's outputs are its recording
+  ``removal``;
 - a 4-iteration retraining writes ``inpaint_gaussians.ply`` from a state
   of the reference's capacity;
 - ``remove_object`` with the JAX side's removal outputs as the cache
@@ -39,11 +40,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+import torch_references as REF  # noqa: E402
 from test_torch_edit import (  # noqa: E402
     JMIO,
     JPLY,
     box_mesh,
-    jax_reference,
+    scene_inputs,
     scenes,
     write_scene,
 )
@@ -57,7 +59,6 @@ from test_torch_train import (  # noqa: E402
 from autovfx_tpu.edit import edit_utils as JEU  # noqa: E402
 from autovfx_tpu.edit.edit_ir import default_event_info  # noqa: E402
 from autovfx_tpu.ops.rasterize import RasterConfig as JConfig  # noqa: E402
-from autovfx_tpu.perception import extract as JEX  # noqa: E402
 from autovfx_tpu.train import inpaint_retrain as JIR  # noqa: E402
 from autovfx_tpu.train import trainer as JT  # noqa: E402
 from autovfx_tpu.utils.synthetic import make_scene  # noqa: E402
@@ -179,18 +180,42 @@ def _extraction(js, ts):
     return bases
 
 
-@pytest.fixture(scope="module")
-def removal(tmp_path_factory, monkeypatch_module):
-    """``inpaint_object`` through both packages on the same extraction,
-    with no LaMa checkpoint (OpenCV's TELEA in both)."""
-    monkeypatch_module.delenv("AUTOVFX_LAMA_CKPT", raising=False)
-    root = str(tmp_path_factory.mktemp("removal"))
-    monkeypatch_module.setenv("HOME", root)
+def _tree(base: str) -> dict:
+    """Each file under ``base``, by its path relative to it."""
+    out = {}
+    for dirpath, _, names in os.walk(base):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, base)] = f.read()
+    return out
+
+
+def removal_inputs(root: str):
+    """The scene (2 frames) and the extraction in both caches: (scene
+    parameters, JAX scene, port scene, JAX base, port base, digest)."""
     params = write_scene(root, n_cams=2)
     js, ts = scenes(root, params)
     jbase, tbase = _extraction(js, ts)
-    with jax_reference():
-        JEX.inpaint_object(js, "box", 1)
+    key = REF.digest(dict(scene_inputs(root, params),
+                          extraction=_tree(jbase), object=["box", 1]))
+    return params, js, ts, jbase, tbase, key
+
+
+@pytest.fixture(scope="module")
+def removal(tmp_path_factory, monkeypatch_module):
+    """``inpaint_object`` through the port, and the files the JAX
+    package's writes into its base (its recording ``removal``, under
+    ``jax_reference``) on the same extraction, with no LaMa checkpoint
+    (OpenCV's TELEA in both)."""
+    monkeypatch_module.delenv("AUTOVFX_LAMA_CKPT", raising=False)
+    root = str(tmp_path_factory.mktemp("removal"))
+    monkeypatch_module.setenv("HOME", root)
+    params, js, ts, jbase, tbase, key = removal_inputs(root)
+    for rel, data in REF.load("removal", key)["files"].items():
+        os.makedirs(os.path.dirname(os.path.join(jbase, rel)), exist_ok=True)
+        with open(os.path.join(jbase, rel), "wb") as f:
+            f.write(data.tobytes())
     got = EX.inpaint_object(ts, "box", "1")
     assert got == tbase
     return dict(root=root, params=params, js=js, ts=ts, jbase=jbase,

@@ -143,21 +143,29 @@ def run(code, env=None):
     )
 
 
-def test_imports_and_renders_without_jax():
+@pytest.fixture(scope="module")
+def render_500():
+    """``RENDER_500`` run once in a subprocess that can import neither JAX
+    nor the JAX package and finds no ``nvcc`` and no CUDA toolkit: the
+    one run checks both claims."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'autovfx_tpu'):\n"
         "    sys.modules[m] = None  # any import of them now raises\n"
         + RENDER_500
     )
-    r = run(code)
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent")
+    return run(code, env=env)
+
+
+def test_imports_and_renders_without_jax(render_500):
+    r = render_500
     assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
 
 
-def test_import_needs_no_nvcc():
-    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
-               CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent")
-    r = run("import sys\n" + RENDER_500, env=env)
+def test_import_needs_no_nvcc(render_500):
+    r = render_500
     assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
 
 

@@ -4,7 +4,8 @@ For each world size D (2 and 4), one module-scoped spawn of D gloo ranks
 (``autovfx_tpu_torch.parallel.launch.spawn``) runs every case of
 ``tests/torch_parallel_ranks.py`` (torch only) on seeded inputs made by
 JAX, and the results are held against JAX's functions over its virtual
-mesh (``devices=jax.devices()[:D]``; ``tests/conftest.py`` gives 8):
+mesh (``devices=jax.devices()[:D]``; ``tests/conftest.py`` gives 8),
+as its recordings ``parallel_D2`` and ``parallel_D4`` hold them:
 
 - ``make_mesh``: shapes and each rank's coordinates;
 - ``dp_train_step``: loss and PSNR rtol 1e-4, the state after the step
@@ -30,13 +31,13 @@ from autovfx_tpu.core import cameras as JC
 from autovfx_tpu.ops.rasterize import RasterConfig, rasterize
 from autovfx_tpu.parallel import sharding as JS
 from autovfx_tpu.parallel.mesh import make_mesh as j_make_mesh
-from autovfx_tpu.train import trainer as JT
 from autovfx_tpu.utils.synthetic import make_scene
 from autovfx_tpu_torch import convert
 from autovfx_tpu_torch.parallel import dryrun, launch
 from autovfx_tpu_torch.parallel import sharding as S
 
 import torch_parallel_ranks
+import torch_references as REF
 
 CFG = RasterConfig(dup_budget=1 << 13, backend="ref")
 COLOR_ATOL, DEPTH_ATOL = 2e-3, 5e-3
@@ -85,69 +86,69 @@ def assert_render(got, color, depth, alpha):
                                atol=DEPTH_ATOL, rtol=0)
 
 
+# one device's JAX render, compiled once per shape for both worlds
+render = jax.jit(lambda g, c, bg: rasterize(g, c, bg=bg, config=CFG))
+
+
+def world_inputs(d: int):
+    """The JAX-made scenes, cameras and background of a world of ``d``
+    ranks, and their digest: the DP step's perturbed scene toward its
+    renders, and the slabs' scene (the JAX distributed test's)."""
+    g, _ = make_scene(n=100, width=32, height=24, key=1)
+    scene, cam = make_scene(n=256, width=32, height=24, key=3)
+    inp = dict(
+        g=g, cams=ring_cams(d), bg=jnp.array([0.3, 0.2, 0.1]),
+        g_train=g.replace(xyz=g.xyz + 0.03 * jax.random.normal(
+            jax.random.PRNGKey(2), g.xyz.shape)),
+        scene=scene, cam=cam, traj=orbit((0.0, 0.06, np.pi)))
+    return inp, REF.digest(dict(inp, d=d, cfg=CFG))
+
+
+def dp_images(jin: dict, d: int):
+    """The DP step's targets: the unperturbed scene's renders."""
+    return jnp.stack([render(jin["g"], JC.index_camera(jin["cams"], i),
+                             0 * jin["bg"]).color for i in range(d)])
+
+
 @pytest.fixture(scope="module", params=[2, 4], ids=["D2", "D4"])
 def world(request, tmp_path_factory):
     """(D, the JAX side's results, every rank's results, the checkpoint
-    path).  The JAX side runs under ``jax.jit``: eager ``shard_map``
-    dispatches op by op."""
+    path).  What the JAX side runs under ``jax.jit`` over
+    ``jax.devices()[:D]`` is its recording ``parallel_D<D>``; the scenes,
+    the one-device renders, the host-side slabs and the 2×2 mesh are
+    made live."""
     d = request.param
-    devs = jax.devices()[:d]
-    # the DP step and loop: a perturbed scene toward its renders
-    g, _ = make_scene(n=100, width=32, height=24, key=1)
-    cams = ring_cams(d)
-    bg = jnp.array([0.3, 0.2, 0.1])
-    render = jax.jit(lambda g, c, bg: rasterize(g, c, bg=bg, config=CFG))
-    imgs = jnp.stack([render(g, JC.index_camera(cams, i), 0 * bg).color
-                      for i in range(d)])
-    g_train = g.replace(xyz=g.xyz + 0.03 * jax.random.normal(
-        jax.random.PRNGKey(2), g.xyz.shape))
-    jcfg = JT.TrainConfig(raster=CFG)
-    mesh_dp = j_make_mesh((d, 1), devices=devs)
-    jstate, jaux = jax.jit(lambda s, c, im: JS.dp_train_step(
-        s, c, im, jcfg, mesh_dp))(JT.init_state(g_train), cams, imgs)
-    # the slabs: the JAX distributed test's scene
-    scene, cam = make_scene(n=256, width=32, height=24, key=3)
-    mesh_g = j_make_mesh((1, d), devices=devs)
+    jin, key = world_inputs(d)
+    scene, cam, bg = jin["scene"], jin["cam"], jin["bg"]
     full = JS.shard_gaussians(scene, cam, d)
     compact, c_ovf = JS.shard_gaussians_compact(scene, cam, d, slack=0.5)
-    store = JS.round_robin_store(scene, d)
-    build = jax.jit(lambda st: JS.distributed_shard_compact(
-        st, cam, mesh_g, slack=0.6))
-    dist, d_ovf = build(store)
-    composite = jax.jit(lambda gs: JS.sharded_render_compact(
-        gs, cam, mesh_g, config=CFG, bg=bg))
     flat = scene.replace(xyz=jnp.zeros_like(scene.xyz))
-    traj = orbit((0.0, 0.06, np.pi))
-    jax_side = {
-        "dp": (jstate, jaux),
-        "single": render(scene, cam, bg),
-        "full": jax.jit(lambda gs: JS.sharded_render(
-            gs, cam, mesh_g, config=CFG, bg=bg))(full),
-        "full_slabs": full, "compact_slabs": compact,
-        "compact_overflow": bool(c_ovf),
-        "compact": composite(compact),
-        "store": store, "dist_slabs": dist, "dist_overflow": bool(d_ovf),
-        "dist": composite(dist),
-        "flat_overflow": bool(JS.shard_gaussians_compact(flat, cam, d,
-                                                         slack=0.0)[1]),
-        # one slab holds every splat: a (source, slab) pair overflows
-        # its block at any slack below D - 1
-        "flat_pair_overflow": bool(build(JS.round_robin_store(flat, d))[1]),
-        "traj": [render(scene, JC.index_camera(traj, f), 0 * bg).color
-                 for f in range(3)],
-        "scene": scene, "cam": cam,
-        "mesh_2d": j_make_mesh((2, 2), devices=devs) if d == 4 else None,
-    }
+    traj = jin["traj"]
+    jax_side = dict(
+        REF.load(f"parallel_D{d}", key), scene=scene, cam=cam,
+        single=render(scene, cam, bg),
+        full_slabs=g_arrays(full), compact_slabs=g_arrays(compact),
+        compact_overflow=bool(c_ovf),
+        store=g_arrays(JS.round_robin_store(scene, d)),
+        flat_overflow=bool(JS.shard_gaussians_compact(flat, cam, d,
+                                                      slack=0.0)[1]),
+        traj=[render(scene, JC.index_camera(traj, f), 0 * bg).color
+              for f in range(3)],
+        mesh_2d=(j_make_mesh((2, 2), devices=jax.devices()[:d])
+                 if d == 4 else None))
     ckpt = str(tmp_path_factory.mktemp(f"dp{d}") / "dp.npz")
     inp = {
-        "budget": CFG.dup_budget, "cams": cam_arrays(cams),
-        "images": np.asarray(imgs), "train_g": g_arrays(g_train),
-        "loop_g": g_arrays(g_train.pad_to(160)), "loop_cfg": LOOP_CFG,
+        "budget": CFG.dup_budget, "cams": cam_arrays(jin["cams"]),
+        "images": np.asarray(dp_images(jin, d)),
+        "train_g": g_arrays(jin["g_train"]),
+        "loop_g": g_arrays(jin["g_train"].pad_to(160)), "loop_cfg": LOOP_CFG,
         "cam_order": np.random.default_rng(d).integers(0, d, (12, d)),
-        "ckpt": ckpt, "scene": g_arrays(scene), "cam": cam_arrays(cam),
-        "bg": np.asarray(bg), "slack": 0.5, "dist_slack": 0.6,
-        "jax_full_slabs": g_arrays(full), "jax_compact_slabs": g_arrays(compact),
-        "traj": cam_arrays(traj), "traj_frames": 3,
+        "ckpt": ckpt, "scene": g_arrays(jin["scene"]),
+        "cam": cam_arrays(jin["cam"]), "bg": np.asarray(jin["bg"]),
+        "slack": 0.5, "dist_slack": 0.6,
+        "jax_full_slabs": jax_side["full_slabs"],
+        "jax_compact_slabs": jax_side["compact_slabs"],
+        "traj": cam_arrays(jin["traj"]), "traj_frames": 3,
     }
     ranks = launch.spawn(d, torch_parallel_ranks.run_cases, (inp,),
                          backend="gloo", device="cpu")
@@ -172,22 +173,22 @@ def test_make_mesh(world):
 
 def test_dp_step_matches_jax(world):
     _, jax_side, ranks, _ = world
-    jstate, jaux = jax_side["dp"]
+    jstate, jaux = jax_side["dp"]["state"], jax_side["dp"]["aux"]
     got = ranks[0]["dp"]
-    np.testing.assert_allclose(got["loss"], float(jaux.loss), rtol=LOSS_RTOL)
-    np.testing.assert_allclose(got["psnr"], float(jaux.psnr), rtol=LOSS_RTOL)
-    assert got["overflow"] is bool(jaux.overflow) is False
-    for prefix, tree in (("g_", jstate.gaussians), ("m_", jstate.adam.m),
-                         ("v_", jstate.adam.v)):
+    np.testing.assert_allclose(got["loss"], float(jaux["loss"]),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["psnr"], float(jaux["psnr"]),
+                               rtol=LOSS_RTOL)
+    assert got["overflow"] is bool(jaux["overflow"]) is False
+    for prefix in ("g_", "m_", "v_"):
         for f in ("xyz", "sh_dc", "sh_rest", "log_scales", "quats",
                   "opacity_logit"):
-            close_field(got[prefix + f], getattr(tree, f), STATE_TOL,
+            close_field(got[prefix + f], jstate[prefix + f], STATE_TOL,
                         prefix + f)
     np.testing.assert_array_equal(got["stats_max_radii"],
-                                  np.asarray(jstate.stats.max_radii))
-    np.testing.assert_array_equal(got["stats_denom"],
-                                  np.asarray(jstate.stats.denom))
-    close_field(got["stats_grad_accum"], jstate.stats.grad_accum, 1e-4,
+                                  jstate["stats_max_radii"])
+    np.testing.assert_array_equal(got["stats_denom"], jstate["stats_denom"])
+    close_field(got["stats_grad_accum"], jstate["stats_grad_accum"], 1e-4,
                 "grad_accum")
     # the state is replicated: every rank holds the same numbers
     for other in ranks[1:]:
@@ -255,9 +256,9 @@ def test_slab_membership_matches_jax(world):
         assert _rows(out["full_slab"]) - free == want, r
         assert _rows(out["compact_slab"]) - free == want, r
         assert (_rows(out["full_slab"]) - free
-                == _rows(g_arrays(jax_side["full_slabs"]), r) - free)
+                == _rows(jax_side["full_slabs"], r) - free)
         assert (_rows(out["dist_slab"]) - free_bin
-                == _rows(g_arrays(jax_side["dist_slabs"]), r) - free_bin)
+                == _rows(jax_side["dist_slabs"], r) - free_bin)
 
 
 @pytest.mark.parametrize("path", ["full", "compact", "dist"])
@@ -274,8 +275,7 @@ def test_slab_composites_match_jax(world, path):
 def test_store_and_overflow_flags_match_jax(world):
     d, jax_side, ranks, _ = world
     for r, out in enumerate(ranks):
-        want = {k: np.asarray(v)[r]
-                for k, v in g_arrays(jax_side["store"]).items()}
+        want = {k: np.asarray(v)[r] for k, v in jax_side["store"].items()}
         for k in want:
             np.testing.assert_array_equal(out["store"][k], want[k], err_msg=k)
         assert out["compact_overflow"] == jax_side["compact_overflow"]

@@ -13,8 +13,9 @@ video helpers.
 - GPT-4V offline: the size table and the default axis equal to JAX's,
   and the port's ``gpt4v`` with ``requests`` unimportable;
 - ``render_asset_previews`` at 64² against JAX's (unit view directions,
-  ``tests/test_torch_edit.jax_reference``): PSNR > 40 dB per view, the
-  fused-frame budget of ``tests/test_torch_clip.py``;
+  ``tests/test_torch_edit.jax_reference``; its recording ``previews``):
+  PSNR > 40 dB per view, the fused-frame budget of
+  ``tests/test_torch_clip.py``;
 - ``retrieve_asset``'s object dict equal to JAX's;
 - ``utils/video``: the frame directory written without a video backend,
   and ``render_trajectory`` against JAX's on 2 cameras (PNGs within
@@ -27,20 +28,19 @@ import subprocess
 import sys
 
 import numpy as np
-import jax
 import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from test_torch_edit import jax_reference, scenes, write_scene  # noqa: E402
+import torch_references as REF  # noqa: E402
+from test_torch_edit import scenes, write_scene  # noqa: E402
 from test_torch_train import port_camera, port_gaussians  # noqa: E402
 from autovfx_tpu.core import cameras as JC  # noqa: E402
 from autovfx_tpu.edit import edit_utils as JEU  # noqa: E402
 from autovfx_tpu.edit import mesh_io as JMIO  # noqa: E402
 from autovfx_tpu.ops.rasterize import RasterConfig as JConfig  # noqa: E402
 from autovfx_tpu.perception import gpt4v as JG  # noqa: E402
-from autovfx_tpu.render import preview as JPV  # noqa: E402
 from autovfx_tpu.retrieval import objaverse_index as JOI  # noqa: E402
 from autovfx_tpu.retrieval import wrappers as JW  # noqa: E402
 from autovfx_tpu.utils import video as JV  # noqa: E402
@@ -293,35 +293,37 @@ def psnr(a, b) -> float:
     return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
 
 
-@pytest.fixture(scope="module")
-def previews(tmp_path_factory):
-    """The basketball's 64² previews rendered by both packages."""
-    root = tmp_path_factory.mktemp("previews")
+def preview_inputs(root: str):
+    """The basketball (an icosphere with a colour gradient) written to
+    ``root``: its path and the digest of the previews' inputs."""
     v, f = icosphere()
-    obj = str(root / "basketball.obj")
+    obj = os.path.join(root, "basketball.obj")
     colors = np.stack([0.5 + v[:, 2], 0.4 + 0 * v[:, 0], 0.5 - v[:, 2]], 1)
     JMIO.save_obj(obj, JMIO.Mesh(vertices=v, faces=f,
                                  vertex_colors=colors.astype(np.float32)))
+    return obj, REF.digest(dict(
+        files=REF.file_digests(root, ["basketball.obj"]), size=64))
+
+
+@pytest.fixture(scope="module")
+def previews(tmp_path_factory):
+    """The basketball's 64² previews rendered by the port, and JAX's as
+    its recording ``previews`` holds them (each PNG as PIL reads it)."""
+    root = tmp_path_factory.mktemp("previews")
+    obj, key = preview_inputs(str(root))
     got = PV.render_asset_previews(obj, str(root / "port"), "basketball",
                                    size=64, device="cpu")
-    with jax_reference(), pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JPV, "rasterize", jax.jit(JPV.rasterize,
-                                             static_argnames=("config",)))
-        want = JPV.render_asset_previews(obj, str(root / "jax"), "basketball",
-                                         size=64)
-    return got, want
+    return got, REF.load("previews", key)
 
 
 def test_previews_match_jax(previews):
-    from PIL import Image
-
     got, want = previews
-    names = sorted(os.listdir(want))
+    names = sorted(want)
     assert sorted(os.listdir(got)) == names == [f"{i:03d}.png"
                                                 for i in range(4)]
     for name in names:
         a = png.read_png(os.path.join(got, name))
-        b = np.asarray(Image.open(os.path.join(want, name)))
+        b = want[name]
         assert a.shape == b.shape == (64, 64, 3)
         assert (a.min(-1) < 250).sum() > 200  # the ball is in view
         assert psnr(a, b) > 40.0, name

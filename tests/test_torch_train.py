@@ -17,6 +17,10 @@ backwards.  Tolerances:
   JAX's split noise injected, and ``reset_opacity``: counts and masks
   exactly, values at 1e-6; one ``train_step``'s loss, PSNR and densify
   stats at 1e-4 relative (1e-5 for the loss and PSNR).
+
+JAX's side of the gradients, the offset render, the regularized losses
+and the train step is read from its recordings (``train_*`` in
+``tests/golden/torch/``, ``tests/torch_references.py``).
 """
 import dataclasses
 
@@ -28,8 +32,6 @@ import torch
 
 from autovfx_tpu.core import cameras as JC
 from autovfx_tpu.core.gaussians import Gaussians as JGaussians
-from autovfx_tpu.ops.rasterize import RasterConfig as JConfig
-from autovfx_tpu.ops.rasterize import rasterize as j_rasterize
 from autovfx_tpu.train import densify as JD
 from autovfx_tpu.train import losses as JL
 from autovfx_tpu.train import trainer as JT
@@ -41,6 +43,8 @@ from autovfx_tpu_torch.ops.rasterize import RasterConfig, rasterize
 from autovfx_tpu_torch.train import densify as D
 from autovfx_tpu_torch.train import losses as L
 from autovfx_tpu_torch.train import trainer as T
+
+import torch_references as REF
 
 PARAMS = ("xyz", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logit")
 BUDGET = 1 << 14
@@ -75,26 +79,30 @@ def assert_field_close(got, want, atol, what):
 # ---- gradients of the differentiable rasterize --------------------------------
 
 
-@pytest.mark.parametrize("tile,n,w,h,key", [(16, 120, 48, 32, 1),
-                                            (32, 160, 64, 48, 4)])
-def test_gradients_match_jax_grad(tile, n, w, h, key):
+GRAD_CASES = [(16, 120, 48, 32, 1), (32, 160, 64, 48, 4)]
+
+
+def gradient_inputs(tile, n, w, h, key):
+    """A gradient case's scene and camera (JAX's), the weights of its
+    color, depth and alpha in the loss, its background, and their
+    digest."""
     g, cam = make_scene(n=n, width=w, height=h, key=key)
     rng = np.random.default_rng(key)
     gc = rng.standard_normal((h, w, 3)).astype(np.float32)
     gd = (0.1 * rng.standard_normal((h, w))).astype(np.float32)
     ga = (0.2 * rng.standard_normal((h, w))).astype(np.float32)
     bg = np.array([0.1, 0.3, 0.2], np.float32)
-    jcfg = JConfig(dup_budget=BUDGET, backend="ref", tile=tile)
+    return g, cam, gc, gd, ga, bg, REF.digest(dict(
+        g=g, cam=cam, gc=gc, gd=gd, ga=ga, bg=bg, tile=tile, budget=BUDGET))
 
-    def j_loss(params, offset):
-        out = j_rasterize(g.replace(**params), cam, bg=jnp.asarray(bg),
-                          config=jcfg, mean2d_offset=offset)
-        return (jnp.sum(out.color * gc) + jnp.sum(out.depth * gd)
-                + jnp.sum(out.alpha * ga))
 
-    params = {f: getattr(g, f) for f in PARAMS}
-    j_params, j_off = jax.grad(j_loss, argnums=(0, 1))(
-        params, jnp.zeros((n, 2), jnp.float32))
+@pytest.mark.parametrize("tile,n,w,h,key", GRAD_CASES)
+def test_gradients_match_jax_grad(tile, n, w, h, key):
+    """Against ``jax.grad`` of the same loss through JAX ``rasterize``
+    (``backend="ref"``), recorded as ``train_grad_<tile>``."""
+    g, cam, gc, gd, ga, bg, digest = gradient_inputs(tile, n, w, h, key)
+    want = REF.load(f"train_grad_{tile}", digest)
+    j_params, j_off = want["params"], want["mean2d_offset"]
 
     gt, ct = port_gaussians(g), port_camera(cam)
     leaves = {f: getattr(gt, f).clone().requires_grad_(True) for f in PARAMS}
@@ -111,21 +119,26 @@ def test_gradients_match_jax_grad(tile, n, w, h, key):
     assert float(offset.grad.abs().max()) > 0
 
 
-def test_mean2d_offset_render_matches_jax():
-    """A nonzero offset, with no gradient asked for, moves the splats and
-    their tile rects as in JAX ``rasterize(backend="ref")``."""
+def offset_inputs():
+    """The offset case's scene, camera and offsets, and their digest."""
     g, cam = make_scene(n=150, width=48, height=32, key=2)
     off = (np.random.default_rng(2).random((150, 2), np.float32) - 0.5) * 12.0
-    want = j_rasterize(g, cam, config=JConfig(dup_budget=BUDGET,
-                                              backend="ref"),
-                       mean2d_offset=jnp.asarray(off))
+    return g, cam, off, REF.digest(dict(g=g, cam=cam, off=off,
+                                        budget=BUDGET))
+
+
+def test_mean2d_offset_render_matches_jax():
+    """A nonzero offset, with no gradient asked for, moves the splats and
+    their tile rects as in JAX ``rasterize(backend="ref")`` (recorded as
+    ``train_offset``)."""
+    g, cam, off, key = offset_inputs()
+    want = REF.load("train_offset", key)
     got = rasterize(port_gaussians(g), port_camera(cam),
                     config=RasterConfig(dup_budget=BUDGET),
                     mean2d_offset=t(off))
     for f in ("color", "depth", "alpha"):
-        np.testing.assert_allclose(getattr(got, f).numpy(),
-                                   np.asarray(getattr(want, f)), atol=2e-5,
-                                   err_msg=f)
+        np.testing.assert_allclose(getattr(got, f).numpy(), want[f],
+                                   atol=2e-5, err_msg=f)
 
 
 def test_finite_differences_xyz_and_opacity():
@@ -315,7 +328,9 @@ def test_ray_directions_match_jax():
     assert C.num_cameras(batch) == 3
 
 
-def _regularized(pseudo_normal: float):
+def regularized_inputs(pseudo_normal: float):
+    """The regularized loss's scene, camera, targets and weights, and
+    their digest."""
     g, cam = make_scene(n=120, width=40, height=32, key=3)
     rng = np.random.default_rng(3)
     rgb = rng.random((32, 40, 3), np.float32)
@@ -324,17 +339,20 @@ def _regularized(pseudo_normal: float):
     kw = dict(lambda_depth=0.3, lambda_normal=0.2,
               lambda_pseudo_normal=pseudo_normal, lambda_alpha=0.05,
               lambda_anisotropic=0.01)
-    jcfg = JT.TrainConfig(raster=JConfig(dup_budget=BUDGET, backend="ref"),
-                          **kw)
+    return g, cam, rgb, depth, normal, kw, REF.digest(dict(
+        g=g, cam=cam, rgb=rgb, depth=depth, normal=normal, kw=kw,
+        budget=BUDGET))
+
+
+def _regularized(pseudo_normal: float):
+    """The port's loss and gradients, and JAX's ``jax.value_and_grad`` of
+    ``compute_loss`` as recorded (``train_regularized`` without the
+    pseudo-normal term, ``train_pseudo_normal`` with it)."""
+    g, cam, rgb, depth, normal, kw, key = regularized_inputs(pseudo_normal)
+    want = REF.load("train_pseudo_normal" if pseudo_normal
+                    else "train_regularized", key)
+    j_val, j_grads = want["value"], want["grads"]
     cfg = T.TrainConfig(raster=RasterConfig(dup_budget=BUDGET), **kw)
-
-    def j_loss(params):
-        return JT.compute_loss(g.replace(**params), jnp.zeros((120, 2)), cam,
-                               jnp.asarray(rgb), jcfg, jnp.asarray(depth),
-                               jnp.asarray(normal))[0]
-
-    j_val, j_grads = jax.value_and_grad(j_loss)(
-        {f: getattr(g, f) for f in PARAMS})
     gt = port_gaussians(g)
     leaves = {f: getattr(gt, f).clone().requires_grad_(True) for f in PARAMS}
     loss = T.compute_loss(dataclasses.replace(gt, **leaves),
@@ -373,26 +391,33 @@ def test_pseudo_normal_gradient_is_finite_where_the_reference_is_nan():
 # ---- one train step -------------------------------------------------------------
 
 
-def test_train_step_matches_jax():
+def step_inputs():
+    """The train step's scene (160 slots), camera and target, and their
+    digest."""
     g, cam = make_scene(n=150, width=48, height=32, key=6)
     g = g.pad_to(160)
     target = np.random.default_rng(6).random((32, 48, 3), np.float32)
-    jcfg = JT.TrainConfig(raster=JConfig(dup_budget=BUDGET, backend="ref"))
+    return g, cam, target, REF.digest(dict(g=g, cam=cam, target=target,
+                                           budget=BUDGET))
+
+
+def test_train_step_matches_jax():
+    """Against JAX's ``train_step``, recorded as ``train_step``."""
+    g, cam, target, key = step_inputs()
+    jstate = REF.load("train_step", key)
     cfg = T.TrainConfig(raster=RasterConfig(dup_budget=BUDGET))
-    jstate, jaux = JT.train_step(JT.init_state(g), cam, jnp.asarray(target),
-                                 jcfg)
     state, aux = T.train_step(T.init_state(port_gaussians(g)),
                               port_camera(cam), t(target), cfg)
-    np.testing.assert_allclose(float(aux.loss), float(jaux.loss), rtol=1e-5)
-    np.testing.assert_allclose(float(aux.psnr), float(jaux.psnr), rtol=1e-5)
-    assert bool(aux.overflow) == bool(jaux.overflow) is False
-    assert state.step == int(jstate.step) == 1
+    np.testing.assert_allclose(float(aux.loss), jstate["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(aux.psnr), jstate["psnr"], rtol=1e-5)
+    assert bool(aux.overflow) == jstate["overflow"] is False
+    assert state.step == jstate["step"] == 1
     np.testing.assert_array_equal(state.stats.max_radii.numpy(),
-                                  np.asarray(jstate.stats.max_radii))
+                                  jstate["max_radii"])
     np.testing.assert_array_equal(state.stats.denom.numpy(),
-                                  np.asarray(jstate.stats.denom))
+                                  jstate["denom"])
     assert_field_close(state.stats.grad_accum.numpy(),
-                       jstate.stats.grad_accum, 1e-4, "grad_accum")
+                       jstate["grad_accum"], 1e-4, "grad_accum")
 
 
 # ---- densification ---------------------------------------------------------------
