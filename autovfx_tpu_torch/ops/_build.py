@@ -103,6 +103,19 @@ SIGNATURES = {
         _P,  # grad (N, 10), zeroed by the caller
         _P,  # stream
     ],
+    "density_fwd": [
+        _I64, _I,  # points, neighbours a point
+        _P, _P, _P,  # points (P, 3), neighbours (P, k) int32, table (N, 12)
+        _P, _P,  # out density (P,), gradient (P, 3)
+        _P,  # stream
+    ],
+    "density_bwd": [
+        _I64, _I,  # points, neighbours a point
+        _P, _P, _P,  # points, neighbours, table, as the forward's
+        _P, _P,  # g density, g gradient (both nullable)
+        _P, _P,  # d points (nullable), d table (N, 12), zeroed by the caller
+        _P,  # stream
+    ],
 }
 
 _lock = threading.Lock()

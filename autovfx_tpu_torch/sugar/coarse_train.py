@@ -29,6 +29,7 @@ import torch
 from autovfx_tpu_torch.core.cameras import Camera, index_camera
 from autovfx_tpu_torch.core.gaussians import Gaussians
 from autovfx_tpu_torch.ops.rasterize import rasterize
+from autovfx_tpu_torch.sugar import density as D
 from autovfx_tpu_torch.sugar import regularization as REG
 from autovfx_tpu_torch.train import trainer as T
 from autovfx_tpu_torch.utils import trace
@@ -68,13 +69,15 @@ def sugar_losses(
         with trace.span("sugar.density"):
             samples = REG.sample_sdf_points(g, generator, cfg.n_sdf_samples,
                                             draws=draws)
+            # one evaluation of the field serves both terms
+            field = D.density_field(samples.points, samples.neighbors, g)
             term = (REG.sdf_regularization_loss if cfg.sdf_mode == "sdf"
                     else REG.density_regularization_loss)
             loss = loss + cfg.sdf_weight * term(g, samples, cam, out_depth,
-                                                out_alpha)
+                                                out_alpha, field)
             if cfg.normal_weight:
                 loss = loss + cfg.normal_weight * (
-                    REG.normal_consistency_loss(g, samples))
+                    REG.normal_consistency_loss(g, samples, field))
     return loss
 
 

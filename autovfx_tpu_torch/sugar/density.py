@@ -19,6 +19,12 @@ are sums of plane products.  Batched 1×3 by 3×3 matrix products of
 these shapes run at a tiny fraction of the device; elementwise passes
 are bound by memory traffic, and autograd derives the backward from the
 same forward.
+
+That elementwise form is the plain twin: the CPU runs it, ``chunk``
+points at a time.  On CUDA tensors ``density_field`` runs the hand
+kernels of ``ops/density_cuda`` instead (one forward for the density
+and its gradient together, one backward that recomputes each pair and
+scatters the splats' gradients), whole, with no chunks.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 from autovfx_tpu_torch.core.gaussians import Gaussians
 from autovfx_tpu_torch.core.quaternion import quat_to_rotmat
+from autovfx_tpu_torch.ops import density_cuda
 from autovfx_tpu_torch.ops.knn import knn_indices
 from autovfx_tpu_torch.utils.gather import take
 
@@ -50,14 +57,17 @@ def reset_neighbors(g: Gaussians, k: int = 16) -> torch.Tensor:
     return idx
 
 
-def _field_tables(g: Gaussians):
-    """The Gaussians' centres (3, N), the six unique entries of their
-    inverse covariances (6, N: a00 a01 a02 a11 a12 a22), a row per value
-    so that a gather along the rows gives a (chunk, k) plane per value,
-    and their opacities (N,)."""
+def _inverse_covariance_entries(g: Gaussians) -> torch.Tensor:
+    """(N, 6) unique entries of the inverse covariances: a00 a01 a02 a11
+    a12 a22."""
     a = gaussian_inverse_covariance(g)
-    upper = torch.cat([a[:, 0, :], a[:, 1, 1:], a[:, 2, 2:]], dim=1)
-    return g.xyz.T, upper.T.contiguous(), g.opacity
+    return torch.cat([a[:, 0, :], a[:, 1, 1:], a[:, 2, 2:]], dim=1)
+
+
+def _splats(g: Gaussians):
+    """What the field reads of the Gaussians: centres (N, 3), opacities
+    (N,) and inverse-covariance entries (N, 6)."""
+    return g.xyz, g.opacity, _inverse_covariance_entries(g)
 
 
 def _dot3(a, b) -> torch.Tensor:
@@ -80,22 +90,50 @@ def _field_pairs(points, nbrs, centers, entries, opacity):
     return icd, take(opacity, nbrs) * torch.exp(-0.5 * _dot3(d, icd))
 
 
+def field_twin(points, nbrs, centers, opacity, entries, chunk: int = CHUNK
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of ``ops/density_cuda.density_field``, on any
+    device: (P,) density and (P, 3) gradient, ``chunk`` points at a
+    time, differentiated by autograd.  The centres (N, 3) and entries
+    (N, 6) are turned to a row per value, so that a gather along the
+    rows gives a (chunk, k) plane per value."""
+    tables = (centers.T, entries.T.contiguous(), opacity)
+    dens, grad = [], []
+    for s in range(0, points.shape[0], chunk):
+        icd, w = _field_pairs(points[s:s + chunk], nbrs[s:s + chunk], *tables)
+        dens.append(torch.sum(w, dim=-1))
+        grad.append(-torch.stack([torch.sum(w * c, dim=-1) for c in icd],
+                                 dim=-1))
+    if not dens:
+        return points.new_zeros((0,)), points.new_zeros((0, 3))
+    return torch.cat(dens), torch.cat(grad)
+
+
+def density_field(
+    points: torch.Tensor,  # (P, 3) query points
+    point_neighbors: torch.Tensor,  # (P, k) Gaussian indices per point
+    g: Gaussians,
+    chunk: int = CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(P,) density and (P, 3) analytic gradient from one evaluation of
+    the (point, neighbour) pairs: the hand kernels on CUDA tensors, whole
+    (they keep no per-pair planes, so ``chunk`` does not apply), the twin
+    ``chunk`` points at a time on the CPU."""
+    if points.is_cuda:
+        return density_cuda.density_field(points, point_neighbors,
+                                          *_splats(g))
+    return field_twin(points, point_neighbors, *_splats(g), chunk)
+
+
 def compute_density(
     points: torch.Tensor,  # (P, 3) query points
     point_neighbors: torch.Tensor,  # (P, k) Gaussian indices per point
     g: Gaussians,
     chunk: int = CHUNK,
 ) -> torch.Tensor:
-    """(P,) density at the query points from their k nearest Gaussians."""
-    tables = _field_tables(g)
-    out = []
-    for s in range(0, points.shape[0], chunk):
-        _, w = _field_pairs(points[s:s + chunk], point_neighbors[s:s + chunk],
-                            *tables)
-        out.append(torch.sum(w, dim=-1))
-    if not out:
-        return points.new_zeros((0,))
-    return torch.cat(out)
+    """(P,) density at the query points from their k nearest Gaussians
+    (``chunk`` as in ``density_field``: the CPU twin's only)."""
+    return density_field(points, point_neighbors, g, chunk)[0]
 
 
 def compute_beta(
@@ -133,17 +171,9 @@ def density_gradient(
     points: torch.Tensor, point_neighbors: torch.Tensor, g: Gaussians,
     chunk: int = CHUNK,
 ) -> torch.Tensor:
-    """(P, 3) analytic ∇density (the level set's normals)."""
-    tables = _field_tables(g)
-    out = []
-    for s in range(0, points.shape[0], chunk):
-        icd, w = _field_pairs(points[s:s + chunk],
-                              point_neighbors[s:s + chunk], *tables)
-        out.append(-torch.stack([torch.sum(w * c, dim=-1) for c in icd],
-                                dim=-1))
-    if not out:
-        return points.new_zeros((0, 3))
-    return torch.cat(out)
+    """(P, 3) analytic ∇density (the level set's normals; ``chunk`` as
+    in ``density_field``)."""
+    return density_field(points, point_neighbors, g, chunk)[1]
 
 
 def draw_samples(

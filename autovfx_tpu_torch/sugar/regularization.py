@@ -10,6 +10,11 @@ field-normal consistency with the samples' source Gaussians (:753-779).
 The distance estimate reads the rendered depth and alpha at the
 samples' pixels, so its gradient reaches the blend backward (kernel 4
 on the card) as depth and alpha cotangents.
+
+The density and normal terms read the field at the same samples: each
+takes the evaluated ``field`` (``density.density_field``'s density and
+gradient), so that a step that runs both evaluates it once; without
+it, a term evaluates what it reads itself.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from autovfx_tpu_torch.core.cameras import Camera
 from autovfx_tpu_torch.core.gaussians import Gaussians
 from autovfx_tpu_torch.sugar import density as D
 from autovfx_tpu_torch.utils.gather import take
+
+Field = tuple[torch.Tensor, torch.Tensor]  # density (S,), gradient (S, 3)
 
 
 def opacity_entropy_loss(g: Gaussians) -> torch.Tensor:
@@ -75,6 +82,13 @@ def estimate_surface_distance(
     return torch.abs(z - surf), valid
 
 
+def _density(g: Gaussians, samples: SdfSamples,
+             field: Optional[Field]) -> torch.Tensor:
+    if field is None:
+        return D.compute_density(samples.points, samples.neighbors, g)
+    return field[0]
+
+
 def _masked_mean(err: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     w = valid.to(torch.float32)
     return torch.sum(err * w) / torch.clamp(w.sum(), min=1.0)
@@ -86,6 +100,7 @@ def density_regularization_loss(
     cam: Camera,
     depth_map: torch.Tensor,
     alpha_map: torch.Tensor,
+    field: Optional[Field] = None,
 ) -> torch.Tensor:
     """|target − density| with target = exp(-d²/(2β²))."""
     dist, valid = estimate_surface_distance(samples.points, cam, depth_map,
@@ -93,8 +108,7 @@ def density_regularization_loss(
     beta = torch.clamp(D.compute_beta(samples.points, samples.neighbors, g),
                        min=1e-6)
     target = torch.exp(-(dist**2) / (2.0 * beta**2))
-    dens = torch.clamp(D.compute_density(samples.points, samples.neighbors, g),
-                       0.0, 1.0)
+    dens = torch.clamp(_density(g, samples, field), 0.0, 1.0)
     return _masked_mean(torch.abs(target - dens), valid)
 
 
@@ -104,22 +118,25 @@ def sdf_regularization_loss(
     cam: Camera,
     depth_map: torch.Tensor,
     alpha_map: torch.Tensor,
+    field: Optional[Field] = None,
 ) -> torch.Tensor:
     """|sdf estimate − d| / β."""
     dist, valid = estimate_surface_distance(samples.points, cam, depth_map,
                                             alpha_map)
     beta = torch.clamp(D.compute_beta(samples.points, samples.neighbors, g),
                        min=1e-6)
-    dens = D.compute_density(samples.points, samples.neighbors, g)
+    dens = _density(g, samples, field)
     sdf_est = D.density_to_sdf(dens, beta)
     return _masked_mean(torch.abs(sdf_est - dist) / beta, valid)
 
 
-def normal_consistency_loss(g: Gaussians, samples: SdfSamples) -> torch.Tensor:
+def normal_consistency_loss(g: Gaussians, samples: SdfSamples,
+                            field: Optional[Field] = None) -> torch.Tensor:
     """mean(1 − |cos|) between the field's normal at each sample and its
     source Gaussian's min-axis normal (the first axis where scales tie,
     as the JAX package's argmin takes it)."""
-    grad = D.density_gradient(samples.points, samples.neighbors, g)
+    grad = (D.density_gradient(samples.points, samples.neighbors, g)
+            if field is None else field[1])
     n_field = grad / torch.clamp(torch.linalg.norm(grad, dim=-1, keepdim=True),
                                  min=1e-9)
     n_gauss = take(g.normals(), samples.source)

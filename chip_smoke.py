@@ -409,12 +409,29 @@ KERNELS = {
         "version is autograd of the preprocess",
     ),
 }
+# the density field's kernels: port-only, no path of the raster's table
+FIELD_KERNELS = {
+    "density_fwd": dict(
+        source="autovfx_tpu_torch/csrc/density_field.cu",
+        replaces="none: XLA's fusion of autovfx_tpu/sugar/density.py "
+        "compute_density and density_gradient",
+        library_ms=None, library_note="no PyTorch call evaluates a "
+        "Gaussian mixture over neighbour lists: the twin is ~20 ops a chunk",
+    ),
+    "density_bwd": dict(
+        source="autovfx_tpu_torch/csrc/density_field.cu",
+        replaces="none: XLA's autodiff of the same",
+        library_ms=None, library_note="no single PyTorch call; the twin is "
+        "autograd of the elementwise field",
+    ),
+}
 # threads and dynamic shared memory of each kernel's launch, for its
 # blocks per SM (the preprocess backward's at SH degree 3: 15 rest
 # coefficients, 70 floats per splat)
 LAUNCH_SHAPE = {"preprocess_kernel": (256, 0), "duplicate_kernel": (256, 0),
                 "blend_kernel": (256, 0), "blend_bwd_kernel": (256, 0),
-                "preprocess_bwd_kernel": (128, 128 * 70 * 4)}
+                "preprocess_bwd_kernel": (128, 128 * 70 * 4),
+                "density_fwd_kernel": (256, 0), "density_bwd_kernel": (256, 0)}
 # an H100 SM: registers, shared memory (of it 1 KB reserved per block),
 # threads and blocks
 SM_REGISTERS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 233472, 2048, 32
@@ -552,7 +569,8 @@ def pair_counts(P, binned, splats, n_contrib, width, height, tile) -> dict:
 def kernel_name(mangled: str) -> str:
     """``blend_kernel<2,1>`` from a kernel's mangled name."""
     m = re.search(r"(preprocess_bwd_kernel|preprocess_kernel|duplicate_kernel"
-                  r"|blend_bwd_kernel|blend_kernel)(I((?:L[ib]\d+E)+)E)?",
+                  r"|blend_bwd_kernel|blend_kernel|density_fwd_kernel"
+                  r"|density_bwd_kernel)(I((?:L[ib]\d+E)+)E)?",
                   mangled)
     if m is None:
         return mangled
@@ -2658,7 +2676,13 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
     from autovfx_tpu_torch.utils import png
 
     ops = P.ops
+    # the cube's path is written into the generated program, which the
+    # program refuses if it holds a banned phrase such as "__": draw the
+    # directory again until its random name holds none
     tmp = tempfile.TemporaryDirectory()
+    while any(phrase in tmp.name for phrase in lmp._BANNED):
+        tmp.cleanup()
+        tmp = tempfile.TemporaryDirectory()
     root = tmp.name
     files = edit_program_files(P, root)
     # the budget: the worst ring view of the background and of the cube's
@@ -2741,6 +2765,7 @@ def edit_program_point(P, card: str) -> tuple[dict, dict]:
         edit_utils.detect_object, lmp.LMP.__call__ = saved_detect, saved_call
     wall = time.perf_counter() - t0
     launches = bench.kernel_launches()
+    fields = field_launches()
     peak = torch.cuda.max_memory_allocated()
     st = clock.stages
     # physics runs inside render_scene, detect inside the program
@@ -3242,6 +3267,7 @@ def removal_program_point(P, card: str) -> tuple[dict, dict]:
                 os.environ[k] = v
     wall = time.perf_counter() - t0
     launches = bench.kernel_launches()
+    fields = field_launches()
     peak = torch.cuda.max_memory_allocated()
     st = clock.stages
     for outer, inner in (("program", "detect+extract"), ("program", "remove"),
@@ -3750,14 +3776,15 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
 
     def coarse_step(state, cam, image, cfg, regularize, generator,
                     draws=None):
-        before = bench.kernel_launches()
+        counted = lambda: {**bench.kernel_launches(), **field_launches()}
+        before = counted()
         sync()
         t0 = time.perf_counter()
         out = real_coarse_step(state, cam, image, cfg, regularize, generator,
                                draws)
         sync()
         seen["coarse"].append((regularize, {n: c - before[n] for n, c in
-                                            bench.kernel_launches().items()},
+                                            counted().items()},
                                time.perf_counter() - t0, out[1].loss))
         seen["last"] = (cam, image, cfg, generator)
         return out
@@ -3767,6 +3794,8 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
     for owner, attr, stage in stages:
         clock.wrap(owner, attr, stage)
     saved += counted_renders(clock, (LS, MET))
+    field_calls = [0]
+    saved += counted_fields(field_calls)
     torch.cuda.reset_peak_memory_stats()
     sync()
     P.utils.trace.reset()
@@ -3779,6 +3808,7 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
             setattr(owner, attr, fn)
     wall = time.perf_counter() - t0
     launches = bench.kernel_launches()
+    fields = field_launches()
     peak = torch.cuda.max_memory_allocated()
 
     # the files, the states, the losses
@@ -3798,17 +3828,25 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
     check(n_active > 0, "the prune at regularize_from left no Gaussian")
 
     # launches: each 3DGS step and plain coarse step once, a regularized
-    # step twice (kernel 4 and the preprocess backward too), each forward
-    # render (the level set's and the metrics') once
+    # step twice (kernel 4 and the preprocess backward too) and the
+    # density field's forward and backward once each, each forward render
+    # (the level set's and the metrics') once, and each evaluation of the
+    # field outside a step (the level set's) its forward once
     one = {k: 1 for k in TRAIN_LIKE}
     for i, (counts, _) in enumerate(seen["train"]):
         check_launches(counts, one, f"3DGS step {i + 1}")
     n_reg = 0
     for i, (reg, counts, _, _) in enumerate(seen["coarse"]):
         check(reg == (i + 1 >= SUGAR_REGULARIZE_FROM), f"coarse step {i + 1}")
-        check_launches(counts, {k: 1 + reg for k in TRAIN_LIKE},
+        check_launches(counts, {**{k: 1 + reg for k in TRAIN_LIKE},
+                                "density_fwd": int(reg),
+                                "density_bwd": int(reg)},
                        f"coarse step {i + 1} (regularized {reg})")
         n_reg += reg
+    check(n_reg > 0 and field_calls[0] > n_reg, f"the CLI evaluated the "
+          f"density field {field_calls[0]} times in {n_reg} regularized steps")
+    check_launches(fields, {"density_fwd": field_calls[0],
+                            "density_bwd": n_reg}, "the CLI's density field")
     n_train, n_coarse = len(seen["train"]), len(seen["coarse"])
     steps = n_train + n_coarse + n_reg
     views = clock.renders
@@ -3852,7 +3890,9 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
           f"foreground box: {rms_box:.4f}); metrics PSNR "
           f"{result['metrics']['psnr']:.3f} dB, SSIM "
           f"{result['metrics']['ssim']:.4f}; launches {launches} for {steps} "
-          f"training passes and {views} forward renders")
+          f"training passes and {views} forward renders, the density field "
+          f"{fields} for {n_reg} regularized steps and {field_calls[0]} "
+          "evaluations")
     print(f"[{card}] SuGaR CLI at {WIDTH}x{HEIGHT} ({kept}): {wall:.1f} s "
           f"wall, peak device memory {peak / 2**30:.2f} GiB; stages (wall s, "
           "each without the stages inside it): " + ", ".join(
@@ -3860,8 +3900,8 @@ def sugar_cli(P, card: str, root: str, budget: int) -> dict:
           + f"; coarse plain step median "
           f"{statistics.median(coarse_t[False]) * 1000.0:.1f} ms, regularized "
           f"{statistics.median(coarse_t[True]) * 1000.0:.1f} ms")
-    return dict(result=result, launches=launches, last=seen["last"],
-                kept=kept)
+    return dict(result=result, launches=launches, field_launches=fields,
+                last=seen["last"], kept=kept)
 
 
 def sugar_refine(P, card: str, run: dict, rng) -> tuple[dict, dict]:
@@ -3955,7 +3995,8 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
         side = {}
         for method in ("tsdf", "density_grid"):
             clock = StageClock()
-            saved = counted_renders(clock, (LS, SF))
+            calls = [0]
+            saved = counted_renders(clock, (LS, SF)) + counted_fields(calls)
             sync()
             P.utils.trace.reset()
             t0 = time.perf_counter()
@@ -3968,11 +4009,13 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
             finally:
                 for owner, attr, fn in saved:
                     setattr(owner, attr, fn)
-            side[method] = bench.kernel_launches()
+            side[method] = {**bench.kernel_launches(), **field_launches()}
             n = clock.renders
             check_launches(side[method], {"preprocess": n,
                                           "duplicate_with_keys": n,
-                                          "blend_fwd": n}, f"{method} mesh")
+                                          "blend_fwd": n,
+                                          "density_fwd": calls[0]},
+                           f"{method} mesh")
             check(len(m.vertices) > 0 and len(m.faces) > 0
                   and np.isfinite(m.vertices).all(),
                   f"{method} mesh: {len(m.vertices)} vertices")
@@ -3980,7 +4023,7 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
                   f"at {SUGAR_SIDE_RES} ({run['kept']}): {len(m.vertices)} "
                   f"vertices, {len(m.faces)} faces in "
                   f"{time.perf_counter() - t0:.2f} s; launches {side[method]} "
-                  f"for {n} renders")
+                  f"for {n} renders and {calls[0]} evaluations of the field")
         check(not bool(overflow["any"]), "SuGaR pipeline: a render of the "
               "CLI, the refinement or the side extractions overflowed")
 
@@ -4023,6 +4066,8 @@ def sugar_pipeline_point(P, card: str) -> tuple[dict, dict]:
     total = {k: run["launches"][k] + refine_launches[k]
              + sum(side[m][k] for m in side) for k in run["launches"]}
     total["blend_fwd"] += total.pop("blend_fwd_train")
+    for k, n in run["field_launches"].items():
+        total[k] = n + sum(side[m][k] for m in side)
     del state, run
     tmp.cleanup()
     return total, err
@@ -4148,6 +4193,215 @@ def sugar_card_against_cpu(P) -> None:
           + f" of their largest; level set masks agree on {agree:.4f}, points"
           f" within {p_err:.2g}; Poisson {len(vg)} vs {len(vc)} vertices, the"
           f" farthest {far:.3g} (voxel diagonal {voxel:.3g}): ok")
+
+
+# ---- SuGaR's density field --------------------------------------------------
+#
+# The two kernels of csrc/density_field.cu (ops/density_cuda) against the
+# elementwise twin (sugar/density.field_twin) on the card, and timed at
+# the sugar-coarse-1m cell's shapes: 1M splats of the garden-like scene,
+# 1M samples drawn in them, each with its source splat's 16 neighbours.
+FIELD_SPLATS, FIELD_SAMPLES, FIELD_K = 1_000_000, 1_000_000, 16
+# each density and gradient is a sum of 16 float32 terms, in another
+# order than the twin's
+FIELD_FWD_RTOL = 1e-5  # of the largest value
+# a splat's gradient sums the pairs of tens of samples by atomics in no
+# fixed order (the twin's index_add_ too), and its terms cancel
+FIELD_BWD_RTOL = 1e-4  # of each field's largest
+# and each element against itself: |got - twin| <= FIELD_ELEM_RTOL *
+# (|twin| + FIELD_FLOOR * the largest |twin|).  The outputs are heavy-
+# tailed (at the cell's shapes a splat gradient's median is 2e-3 to 2e-2
+# of its largest), so the limits of the largest alone would pass a kernel
+# wrong on the typical element; an element that cancels near the floor
+# keeps a few float32 ulps of its terms, which the floor absorbs
+FIELD_ELEM_RTOL, FIELD_FLOOR = 5e-3, 1e-4
+# float32 operations a (sample, neighbour) pair, an FMA 2, counted from
+# the kernels' expressions: the forward's d, A d, q, the weight and the
+# four sums; the backward's recomputation, c, A g, dL/dx and its sum,
+# and the ten splat gradients; each pass takes one exp a pair
+FIELD_FWD_FLOPS, FIELD_BWD_FLOPS = 36, 110
+FIELD_RECORD_BYTES = 40  # centre, opacity, six entries: what a splat holds
+
+
+def field_work(n: int, samples: int, k: int, backward: bool
+               ) -> tuple[float, float, float]:
+    """(bytes, flops, exps) of one pass of the field: each sample's point
+    and int32 neighbour row read, its density and gradient (forward) or
+    their cotangents and dL/dpoint (backward), and each splat's record
+    read once (and its gradient written once, backward)."""
+    pairs = samples * k
+    per_sample = 12 + 4 * k + 16 + (12 if backward else 0)
+    per_splat = FIELD_RECORD_BYTES * (2 if backward else 1)
+    flops = FIELD_BWD_FLOPS if backward else FIELD_FWD_FLOPS
+    return samples * per_sample + n * per_splat, flops * pairs, pairs
+
+
+def field_inputs(n_splats: int, n_samples: int, k: int, seed: int, device,
+                 edge_cases: bool = False) -> tuple:
+    """(points, int64 neighbour rows, centres, opacities, inverse-covariance
+    entries): samples drawn in garden-like splats, each with its source
+    splat's k nearest neighbours.  ``edge_cases`` adds rows of one repeated
+    neighbour, runs of 64 samples that share one row (atomic collisions
+    within and across rows), every 7th splat at opacity 0 and every 11th
+    sample 20 m off, where each pair's exp underflows."""
+    from autovfx_tpu_torch.sugar import density as D
+    from autovfx_tpu_torch.utils.gather import take
+    from autovfx_tpu_torch.utils.synthetic import make_garden_like
+
+    g = make_garden_like(n_splats, seed=seed, extent=EXTENT, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pts, src = D.sample_points_in_gaussians(g, gen, n_samples)
+    nbrs = take(D.reset_neighbors(g, k=k), src)
+    centers, opacity, entries = D._splats(g)
+    if edge_cases:
+        nbrs[::5] = nbrs[::5, :1].clone()
+        m = n_samples // 2 // 64 * 64
+        runs = nbrs[:m].view(m // 64, 64, k)
+        runs[:] = runs[:, :1].clone()
+        opacity = opacity.clone()
+        opacity[::7] = 0.0
+        pts = pts.clone()
+        pts[::11] += 20.0
+    return pts, nbrs, centers, opacity, entries
+
+
+def field_grads(fn, inputs: tuple, cot_dens, cot_grad) -> list:
+    """``fn(points, neighbors, centers, opacity, entries)``'s density and
+    gradient and, from the cotangents (either None), the gradients in the
+    points, centres, opacities and entries."""
+    pts, nbrs, *splats = inputs
+    leaves = [x.detach().clone().requires_grad_(True) for x in (pts, *splats)]
+    dens, grad = fn(leaves[0], nbrs, *leaves[1:])
+    loss = sum(torch.sum(out * c) for out, c in ((dens, cot_dens),
+                                                 (grad, cot_grad))
+               if c is not None)
+    grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+             if loss.requires_grad else [None] * len(leaves))
+    return [dens.detach(), grad.detach()] + [
+        torch.zeros_like(x) if gr is None else gr
+        for x, gr in zip(leaves, grads)]
+
+
+FIELD_OUTPUTS = ("density", "gradient", "d/dpoints", "d/dcenters",
+                 "d/dopacity", "d/dentries")
+
+
+def field_errors(got: list, want: list) -> dict:
+    """Each output's largest gap over the twin's largest magnitude (the gap
+    itself where that is 0), and its largest gap element by element over
+    ``|twin| + FIELD_FLOOR * largest``: ``{name: (largest, each)}``."""
+    out = {}
+    for name, a, b in zip(FIELD_OUTPUTS, got, want):
+        if not b.numel():
+            out[name] = (0.0, 0.0)
+            continue
+        gap, mag = (a - b).abs(), b.abs()
+        scale = float(mag.max())
+        each = float((gap / (mag + FIELD_FLOOR * scale)).max()) \
+            if scale > 0 else float(gap.max())
+        out[name] = (float(gap.max()) / scale if scale > 0
+                     else float(gap.max()), each)
+    return out
+
+
+def check_field(errs: dict, what: str) -> None:
+    for name, (largest, each) in errs.items():
+        tol = FIELD_FWD_RTOL if name in ("density", "gradient") \
+            else FIELD_BWD_RTOL
+        check(largest <= tol, f"{what}: the density field's {name} off by "
+              f"{largest:.3g} of the twin's largest (limit {tol:g})")
+        check(each <= FIELD_ELEM_RTOL, f"{what}: the density field's {name} "
+              f"off by {each:.3g} of an element (limit {FIELD_ELEM_RTOL:g} "
+              f"over a floor of {FIELD_FLOOR:g} of the largest)")
+
+
+def field_launches() -> dict:
+    """The density field's kernels' launch counts (``trace``'s
+    ``launch.density_fwd`` and ``launch.density_bwd``; the card only)."""
+    from autovfx_tpu_torch.utils import trace
+
+    counts = trace.counters()
+    return {k: counts.get(f"launch.{k}", 0) for k in FIELD_KERNELS}
+
+
+def counted_fields(calls: list) -> list:
+    """Count each call of ``ops/density_cuda.density_field``, which
+    launches the forward once, in ``calls[0]``; returns the ``(owner,
+    attr, fn)`` to restore."""
+    from autovfx_tpu_torch.ops import density_cuda as DC
+
+    fn = DC.density_field
+
+    def field(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+
+    DC.density_field = field
+    return [(DC, "density_field", fn)]
+
+
+def density_field_point(P, card: str, path_launches: dict | None = None
+                        ) -> list[dict]:
+    """The field's kernels at the cell's shapes: held to the twin on the
+    card, both cotangents; each kernel's device time beside its bound and
+    the twin's (forward alone; forward and backward less forward).  The
+    rows' launches are ``path_launches``' (the SuGaR pipeline point's,
+    whose regularized coarse steps each launch both once), where given."""
+    from autovfx_tpu_torch.ops import density_cuda as DC
+    from autovfx_tpu_torch.sugar import density as D
+
+    inputs = field_inputs(FIELD_SPLATS, FIELD_SAMPLES, FIELD_K, 21, DEVICE)
+    pts, nbrs, centers, opacity, entries = inputs
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    cot = (torch.randn(pts.shape[:1], generator=gen, device=DEVICE),
+           torch.randn(pts.shape, generator=gen, device=DEVICE))
+    P.utils.trace.reset()
+    got = field_grads(DC.density_field, inputs, *cot)
+    counts = P.utils.trace.counters()
+    want = field_grads(D.field_twin, inputs, *cot)
+    errs = field_errors(got, want)
+    check_field(errs, f"{FIELD_SAMPLES} samples x {FIELD_K}")
+    check_launches({k: counts.get(f"launch.{k}", 0) for k in FIELD_KERNELS},
+                   {"density_fwd": 1, "density_bwd": 1},
+                   "the density field's forward and backward")
+    print(f"check the density field ({FIELD_SAMPLES} samples x {FIELD_K} "
+          f"neighbours, {FIELD_SPLATS} splats) against the twin, of the "
+          "largest / of each element: " + ", ".join(
+              f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in errs.items())
+          + ": ok")
+    del got, want
+
+    nb32 = nbrs.to(torch.int32)
+    table = DC.pack_table(centers, opacity, entries)
+    fwd = lambda: DC.field_fwd_kernel(pts, nb32, table)
+    bwd = lambda: DC.field_bwd_kernel(pts, nb32, table, *cot)
+    with torch.no_grad():
+        twin_fwd = lambda: D.field_twin(pts, nbrs, centers, opacity, entries)
+        ms_fwd, plain_fwd = in_turns(twin_fwd, fwd, 3, "density_fwd_kernel")
+    twin_both = lambda: field_grads(D.field_twin, inputs, *cot)
+    ms_bwd = (device_ms(bwd, KERNEL_REPS, "density_bwd_kernel")
+              + device_ms(bwd, KERNEL_REPS, "density_bwd_kernel")) / 2
+    plain_bwd = device_ms(twin_both, 3) - plain_fwd
+    clock = sm_clock_mhz()
+    rows = []
+    for name, ms, plain, backward in (("density_fwd", ms_fwd, plain_fwd, False),
+                                      ("density_bwd", ms_bwd, plain_bwd, True)):
+        work = field_work(FIELD_SPLATS, FIELD_SAMPLES, FIELD_K, backward)
+        tb = timed_bound(ms, work, clock)
+        print(f"[{card}] {name}: {ms:.4f} ms (device, the profiler), bound "
+              f"{tb['bound_ms']:.4f} ms ({tb['bound_by']}), share "
+              f"{tb['share']:.3f}; the twin {plain:.3f} ms")
+        by_path = ({} if path_launches is None
+                   else {"sugar_pipeline": path_launches[name]})
+        rows.append(dict(
+            name=name, route="cuda", **FIELD_KERNELS[name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(e for k, (e, _) in errs.items()
+                            if k.startswith("d/d") == backward),
+            ms=ms, plain_ms=plain, bound_ms=tb["bound_ms"],
+            bound_by=tb["bound_by"], bound_rate=tb["bound_rate"],
+            share=tb["share"], paths={"sugar_coarse_1m_shapes": tb}))
+    return rows
 
 
 # ---- multi-device point ------------------------------------------------------
@@ -5060,6 +5314,7 @@ def main() -> None:
     removal_launches, removal_err = removal_program_point(P, card)
     sugar_launches, sugar_err = sugar_pipeline_point(P, card)
     sugar_card_against_cpu(P)
+    field_rows = density_field_point(P, card, sugar_launches)
     md_launches, md_err = multi_device_point(P, card)
     dataset_launches = dataset_tools_point(P, card)
     scale_launches = train_at_scale_point(P, card)
@@ -5097,6 +5352,7 @@ def main() -> None:
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             bound_rate=main["bound_rate"], share=main["share"],
             paths=perf[k]))
+    kernels += field_rows
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,7 +11,8 @@ backward kernels under those options, the differentiable ``rasterize``
 and one ``train_step`` against the CPU path; for object removal, LaMa
 and ``inpaint_loss``'s gradients against the CPU; for SuGaR, a plain and
 a regularized coarse step, the density field's forward and backward and
-the level set against the CPU.  The tolerances are ``chip_smoke.py``'s.
+the level set against the CPU, and the density field's kernels against
+their elementwise twin on the card.  The tolerances are ``chip_smoke.py``'s.
 
 Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere.  It imports neither
 JAX nor the JAX package, so it runs on a machine without them, from the
@@ -950,7 +951,8 @@ def test_sugar_density_field_matches_cpu(dev):
         pts, src = D.sample_points_in_gaussians(
             g, None, cs.SHELL_SAMPLES, draws=tuple(x.to(d) for x in draws))
         nb = take(nbrs.to(d), src)
-        dens = D.compute_density(pts, nb, g, chunk=1000)  # several chunks
+        # several chunks on the CPU; the card's kernels evaluate whole
+        dens = D.compute_density(pts, nb, g, chunk=1000)
         grad = D.density_gradient(pts, nb, g, chunk=1000)
         p = proj.to(d)
         loss = torch.sum(dens * p[:, 0]) + torch.sum(grad * p[:, 1:])
@@ -964,6 +966,105 @@ def test_sugar_density_field_matches_cpu(dev):
         tol = cs.STATE_TOL if what.startswith("d/d") else cs.LOSS_RTOL
         err = float((got - want).abs().max())
         assert err <= tol * float(want.abs().max()), (what, err)
+
+
+# ---- the density field's kernels (csrc/density_field.cu) ----------------
+
+FIELD_CASE = (50_000, 200_003, 16)  # splats, samples (not a multiple of
+#                                     a block's 16), neighbours a sample
+
+
+@pytest.fixture(scope="module")
+def field_case(dev):
+    return cs.field_inputs(*FIELD_CASE, seed=4, device=dev, edge_cases=True)
+
+
+@pytest.mark.parametrize("cotangent", ["both", "density", "gradient"])
+def test_density_field_kernels_match_the_twin(field_case, cotangent):
+    """Forward and backward against ``density.field_twin`` on the card, at
+    ``chip_smoke.FIELD_FWD_RTOL`` and ``FIELD_BWD_RTOL`` of each output's
+    largest and ``FIELD_ELEM_RTOL`` of each element over a floor of
+    ``FIELD_FLOOR`` of the largest (sums in another order, atomics in no
+    fixed order), with rows of one repeated neighbour and runs of samples
+    sharing a row, splats at opacity 0 and samples where every exp
+    underflows; the cotangent of both outputs or of one alone (the other
+    absent)."""
+    from autovfx_tpu_torch.ops import density_cuda
+    from autovfx_tpu_torch.sugar import density as D
+
+    p = FIELD_CASE[1]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot_d = torch.randn((p,), generator=gen, device="cuda")
+    cot_g = torch.randn((p, 3), generator=gen, device="cuda")
+    cots = {"both": (cot_d, cot_g), "density": (cot_d, None),
+            "gradient": (None, cot_g)}[cotangent]
+    got = cs.field_grads(density_cuda.density_field, field_case, *cots)
+    want = cs.field_grads(D.field_twin, field_case, *cots)
+    cs.check_field(cs.field_errors(got, want), cotangent)
+    far = torch.arange(p, device="cuda") % 11 == 0
+    assert float(want[0][far].abs().max()) == 0.0  # every exp underflowed
+    assert float(got[0][far].abs().max()) == 0.0
+    assert float(want[0].max()) > 0.1
+
+
+def test_density_field_kernels_take_no_points(field_case):
+    """P = 0: empty outputs and zero gradients, as the twin gives."""
+    from autovfx_tpu_torch.ops import density_cuda
+    from autovfx_tpu_torch.sugar import density as D
+
+    pts, nbrs, *splats = field_case
+    empty = (pts[:0], nbrs[:0], *splats)
+    cots = (pts.new_zeros((0,)), pts.new_zeros((0, 3)))
+    got = cs.field_grads(density_cuda.density_field, empty, *cots)
+    want = cs.field_grads(D.field_twin, empty, *cots)
+    for name, a, b in zip(cs.FIELD_OUTPUTS, got, want):
+        assert a.shape == b.shape and not bool(a.any()), name
+
+
+def test_density_field_wrappers_refuse_what_kernels_do_not_take(field_case):
+    from autovfx_tpu_torch.ops import density_cuda as DC
+
+    pts, nbrs, centers, opacity, entries = field_case
+    nb32 = nbrs.to(torch.int32)
+    table = DC.pack_table(centers, opacity, entries)
+    with pytest.raises(ValueError, match="float32"):
+        DC.field_fwd_kernel(pts.double(), nb32, table)
+    with pytest.raises(ValueError, match="CUDA"):
+        DC.field_fwd_kernel(pts.cpu(), nb32, table)
+    with pytest.raises(ValueError, match="CUDA"):
+        DC.density_field(pts, nbrs, centers.cpu(), opacity.cpu(),
+                         entries.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        DC.field_fwd_kernel(pts[1:], nb32, table)
+    with pytest.raises(ValueError, match="contiguous"):
+        DC.field_fwd_kernel(pts, nb32.t().contiguous().t(), table)
+    with pytest.raises(ValueError, match="shape"):
+        DC.field_bwd_kernel(pts, nb32, table, pts[:, 0].contiguous()[1:], None)
+
+
+def test_regularized_coarse_step_launches_the_field_once(dev):
+    """One regularized coarse step on the 600-splat shell: the density
+    and normal terms share one forward and one backward launch."""
+    from autovfx_tpu_torch.sugar import coarse_train as CT
+    from autovfx_tpu_torch.train import trainer
+    from autovfx_tpu_torch.utils import trace
+
+    config = P.RasterConfig(dup_budget=1 << 14)
+    cfg = CT.SugarConfig(
+        base=trainer.TrainConfig(raster=config, spatial_lr_scale=2.0,
+                                 densify_from_iter=10**9),
+        regularize_from=0, n_sdf_samples=cs.SHELL_SAMPLES)
+    cam = cs.shell_camera("cuda")
+    target = torch.rand((cam.height, cam.width, 3), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+    state = trainer.init_state(cs.shell_gaussians("cuda"))
+    trace.reset()
+    CT.coarse_step(state, cam, target, cfg, True,
+                   torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    counts = trace.counters()
+    assert counts.get("launch.density_fwd") == 1
+    assert counts.get("launch.density_bwd") == 1
 
 
 def test_one_nccl_rank_matches_the_single_device_paths(scene, tmp_path):

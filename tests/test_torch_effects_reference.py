@@ -56,9 +56,12 @@ class Clip(NamedTuple):
 
 
 @pytest.fixture(scope="module", params=SEEDS)
-def clip(request) -> Clip:
+def clip(request):
     """The port's solves and clip inputs from the seeded inputs, as the
-    ``effects-1m`` cell makes them, and the reference's own solve."""
+    ``effects-1m`` cell makes them, and the reference's own solve; the
+    module's tests run on 4 CPU threads, and the worker's own count comes
+    back after them."""
+    threads = torch.get_num_threads()
     torch.set_num_threads(4)
     seed, cfg = request.param, small_config()
     e, fxc = cfg["edit"], cfg["effects"]
@@ -91,8 +94,9 @@ def clip(request) -> Clip:
     ref_clip = ref_edit.make_clip(surf, e["material"], pos, rot, planes,
                                   mask, env, e["lights"], "cpu")
     fx = ref_fx.solve(fxc, place, mi, e["ground_z"], FRAMES, "cpu")
-    return Clip(cfg, bg, port.ref_cams(views, "cpu"), s_cfg, states, cells,
-                melt, inp, ref_clip, fx)
+    yield Clip(cfg, bg, port.ref_cams(views, "cpu"), s_cfg, states, cells,
+               melt, inp, ref_clip, fx)
+    torch.set_num_threads(threads)
 
 
 def psnr(a, b) -> float:

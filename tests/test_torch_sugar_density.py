@@ -169,6 +169,46 @@ def test_regularization_terms_and_gradients(shell, jax_terms, name):
         assert float(np.abs(np.asarray(a_want)).max()) > 0
 
 
+@pytest.mark.parametrize("mode", ["density", "sdf"])
+def test_sugar_losses_evaluate_the_field_once(shell, mode):
+    """``coarse_train.sugar_losses``, which hands one evaluation of the
+    field to both terms, against the sum of the three terms called apart
+    (each evaluating what it reads): the loss and its gradients in the
+    fields and the maps within 1e-6 of the largest (the same operations,
+    their gradients summed in another order)."""
+    from autovfx_tpu_torch.sugar import coarse_train as CT
+
+    pg, cam = shell["pg"], shell["pcam"]
+    cfg = CT.SugarConfig(sdf_mode=mode, n_sdf_samples=N_SAMPLES)
+    draws = D.draw_samples(pg, torch.Generator().manual_seed(2), N_SAMPLES)
+    term = (REG.density_regularization_loss if mode == "density"
+            else REG.sdf_regularization_loss)
+
+    def apart(g, depth, alpha):
+        samples = REG.sample_sdf_points(g, None, N_SAMPLES, draws=draws)
+        return (cfg.entropy_weight * REG.opacity_entropy_loss(g)
+                + cfg.sdf_weight * term(g, samples, cam, depth, alpha)
+                + cfg.normal_weight * REG.normal_consistency_loss(g, samples))
+
+    def once(g, depth, alpha):
+        return CT.sugar_losses(g, cam, depth, alpha, None, cfg, True,
+                               draws=draws)
+
+    out = []
+    for fn in (once, apart):
+        params = {f: getattr(pg, f).clone().requires_grad_(True)
+                  for f in FIELDS}
+        maps = [torch.as_tensor(np.asarray(shell[k])).requires_grad_(True)
+                for k in ("depth", "alpha")]
+        val = fn(dataclasses.replace(pg, **params), *maps)
+        out.append([val, *torch.autograd.grad(val, [*params.values(),
+                                                    *maps])])
+    for what, a, b in zip(("loss",) + FIELDS + ("depth", "alpha"), *out):
+        scale = float(b.abs().max())
+        assert scale > 0, what
+        assert float((a - b).abs().max()) <= 1e-6 * scale, what
+
+
 def test_surface_distance(shell):
     pts = shell["pts"]
     want, wv = JREG.estimate_surface_distance(

@@ -131,6 +131,8 @@ def test_coarse_step_density_span(scene):
     assert ("sugar.density", "step") in tree(snap)
     assert {n: s.calls for n, s in snap.spans.items()}["raster"] == 2
     assert "sugar.density" in names
+    # the CPU takes the field's twin: no kernel launch is counted
+    assert not [k for k in snap.counters if k.startswith("launch.density")]
 
 
 def edit_inputs(scene, effects: bool = False):
